@@ -1,0 +1,121 @@
+// Batch-scan row minima of the packed DNJ engine (Hopper, sm_90a).
+//
+// Replaces ccphylo_tpu/ops/scan_pallas.py::_kernel (:49-84), launched by
+// qrow_mins (:88-121); its plain form is the jnp expression at
+// ccphylo_tpu/tree/packed_engine.py:183-189.
+//
+// What it computes.  The u8 distance matrix is stored as u32 words, four
+// cells per word in little-endian byte lanes (cell c of a row is byte
+// c % 4 of word c / 4).  For each of K candidate rows r:
+//     q[c] = co * cell[r, c] - sd2[r] - sd2[c]   for c < r, IBIG elsewhere
+// and the kernel returns the row minimum and the last-wins argmin, the
+// largest c at the minimum.  Where the minimum is IBIG the argmin is
+// n - 1, the largest masked column, exactly as the reference's masked
+// reduction over all n columns gives.  Rows may repeat; row 0 (padding)
+// has no columns.  Arithmetic is int32 with two's-complement wrap, as in
+// the JAX engine.
+//
+// What bounds it on Hopper: bytes read.  Each row streams r/4 words of
+// the matrix and r sd2 entries, a few integer operations per byte.  The
+// design is one block per candidate row; its threads stride the row in
+// 16-byte vectors (16 cells and 16 sd2 entries per step, neighbouring
+// threads on neighbouring vectors), read only the c < r prefix, keep a
+// (min, largest index at min) pair each, and reduce within the block by
+// warp shuffles.  The TPU version's 8x sublane over-read, its one-hot
+// lane writes and its int32-only reductions are dropped.
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kIBig = INT_MAX;
+
+// the better of two (min, index) pairs: smaller value, then larger index
+__device__ __forceinline__ void take_better(int& best, int& bidx, int ob,
+                                            int oi) {
+  if (ob < best || (ob == best && oi > bidx)) {
+    best = ob;
+    bidx = oi;
+  }
+}
+
+__global__ void qrow_mins_kernel(const int* __restrict__ rows, int co,
+                                 const uint4* __restrict__ words,
+                                 const int* __restrict__ sd2, int n,
+                                 int* __restrict__ rmin,
+                                 int* __restrict__ rarg) {
+  const int k = blockIdx.x;
+  const int r = rows[k];
+  const unsigned sdr = (unsigned)sd2[r];
+  const uint4* row = words + (size_t)r * (n / 16);
+  const int4* sd4 = reinterpret_cast<const int4*>(sd2);
+  int best = kIBig, bidx = -1;
+  const int nvec = (r + 15) / 16;
+  // columns rise within a thread, so `<=` keeps the last index at the min
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    const uint4 w4 = row[v];
+    const uint32_t ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int4 s4 = sd4[4 * v + j];
+      const int ss[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int c = 16 * v + 4 * j + b;
+        const unsigned cell = (ws[j] >> (8 * b)) & 0xFFu;
+        const int q = (int)((unsigned)co * cell - sdr - (unsigned)ss[b]);
+        if (c < r && q <= best) {
+          best = q;
+          bidx = c;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    take_better(best, bidx, __shfl_down_sync(0xffffffffu, best, off),
+                __shfl_down_sync(0xffffffffu, bidx, off));
+  __shared__ int sb[kThreads / 32], si[kThreads / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) {
+    sb[warp] = best;
+    si[warp] = bidx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    best = lane < kThreads / 32 ? sb[lane] : kIBig;
+    bidx = lane < kThreads / 32 ? si[lane] : -1;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      take_better(best, bidx, __shfl_down_sync(0xffffffffu, best, off),
+                  __shfl_down_sync(0xffffffffu, bidx, off));
+    if (lane == 0) {
+      rmin[k] = best;
+      rarg[k] = best == kIBig ? n - 1 : bidx;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// rows: K int32 row indices in [0, n); words: (n, n/4) u32, 16-byte
+// aligned; sd2: n int32, 16-byte aligned; n % 16 == 0; rmin, rarg: K int32.
+int qrow_mins(const void* rows, int K, int co, const void* words, int n,
+              const void* sd2, void* rmin, void* rarg, void* stream) {
+  if (K > 0)
+    qrow_mins_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)rows, co, (const uint4*)words, (const int*)sd2, n,
+        (int*)rmin, (int*)rarg);
+  return (int)cudaGetLastError();
+}
+
+const char* error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,40 @@
+"""State carried over from the JAX package.
+
+This system has no weights; its state is the 2-bit packed sequences
+with their include masks, and the packed u8 `words` buffer with the
+packed engine's state.  `state_from_jax` turns the JAX package's numpy
+forms of each into the port's tensors (u32 data as int32 bit patterns).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .ops.snp_torch import inc32_to_pairmask, u32_tensor, u64_to_u32
+from .tree.packed_engine import state_from_npz
+
+
+def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
+                   device="cpu") -> dict:
+    """Convert whichever of these is given; returns a dict with the
+    same keys:
+
+    - seqs: (n, W64) u64 packed sequences -> (n, 2*W64) int32 words in
+      hi-first base order (`u64_to_u32`);
+    - includes: (W32,) or (n, W32) u32 include words -> pair masks of
+      the same leading shape, (..., 2*W32) int32 (`inc32_to_pairmask`);
+    - words: (npad, npad/4) u32 packed u8 matrix -> int32 tensor;
+    - ckpt: path of a packed-engine checkpoint npz (the JAX engine's
+      CCPHYLO_TPU_CKPT format) -> (engine state dict, joins done).
+    """
+    out = {}
+    if seqs is not None:
+        out["seqs"] = u32_tensor(u64_to_u32(seqs), device)
+    if includes is not None:
+        out["includes"] = u32_tensor(inc32_to_pairmask(includes), device)
+    if words is not None:
+        out["words"] = u32_tensor(words, device)
+    if ckpt is not None:
+        with np.load(ckpt) as d:
+            out["ckpt"] = (state_from_npz(d, device), int(d["meta"][0]))
+    return out

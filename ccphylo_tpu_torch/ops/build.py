@@ -1,0 +1,135 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each source ``csrc/<stem>.cu`` is compiled by nvcc for ``sm_90a`` into
+a shared library with a plain C interface, named by a hash of its
+content and flags, in ``ccphylo_tpu_torch/_build/`` (git-ignored), and
+loaded with ctypes.  Builds run at first use, every missing source at
+once with one nvcc process each, so a fresh checkout builds everything
+on its first kernel call.
+
+There is no fallback: a failed build, a refused launch or a non-zero
+``cudaGetLastError()`` raises.  Every C entry point launches on the
+stream it is given, allocates nothing, and returns
+``cudaGetLastError()``; `launch` raises on a non-zero code and only
+then counts the launch in `launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source stem -> {C entry point: argtypes}; every entry point ends with
+# the stream argument and returns an int (cudaError_t)
+ENTRY_POINTS = {
+    "snp_expand": {
+        # seqs, ld_seq, pair_mask, X, n, W, stream
+        "snp_expand_shared": [_P, _I, _P, _P, _I, _I, _P],
+        # seqs, ld_seq, masks, ld_mask, X, M, n, W, stream
+        "snp_expand_pairwise": [_P, _I, _P, _I, _P, _P, _I, _I, _P],
+    },
+    "qrow_mins": {
+        # rows, K, co, words, n, sd2, rmin, rarg, stream
+        "qrow_mins": [_P, _I, _I, _P, _I, _P, _P, _P, _P],
+    },
+}
+
+# launches of each kernel since the last reset_launches()
+launches = {fn: 0 for eps in ENTRY_POINTS.values() for fn in eps}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from source at first use")
+
+
+def _lib_path(stem: str) -> str:
+    with open(os.path.join(CSRC, stem + ".cu"), "rb") as fh:
+        h = hashlib.sha256(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+
+
+def build_all() -> float:
+    """Compile every kernel library that is not built yet, in parallel.
+    Returns the wall seconds spent; raises with nvcc's output on
+    failure."""
+    t0 = time.perf_counter()
+    todo = [s for s in ENTRY_POINTS if not os.path.exists(_lib_path(s))]
+    if not todo:
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for stem in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, stem + ".cu")]
+        procs.append((stem, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for stem, tmp, p in procs:
+        out, _ = p.communicate()
+        if p.returncode == 0:
+            os.replace(tmp, _lib_path(stem))  # atomic: parallel-safe
+        else:
+            os.unlink(tmp)
+            errors.append(f"{stem}.cu:\n{out.decode(errors='replace')}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def _lib(stem: str) -> ctypes.CDLL:
+    lib = _libs.get(stem)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(_lib_path(stem))
+        for fn, argtypes in ENTRY_POINTS[stem].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _libs[stem] = lib
+    return lib
+
+
+def launch(stem: str, fn: str, *args, device: torch.device) -> None:
+    """Call C entry point `fn` of csrc/<stem>.cu on the current stream of
+    `device`; raise if the launch reports an error."""
+    lib = _lib(stem)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")
+    launches[fn] += 1
