@@ -1,19 +1,27 @@
 """ccphylo_tpu_torch — the PyTorch/CUDA port of ccphylo_tpu for NVIDIA
 Hopper (H100).
 
-The JAX package `ccphylo_tpu` stays the reference: every ported piece
-is held bit-exactly against the JAX function it replaces.  This package
-imports `torch` and never `jax`; it reuses the reference's host-only
-modules (io/, tree/exact.py, tree/newick_build.py, ops/snp.py,
-ops/pack2bit.py and the host CLI modules) by import.
+The JAX package `ccphylo_tpu` stays the reference: the tests hold every
+ported piece bit-exactly against the JAX function it replaces.  This
+package stands on its own: it imports `torch` and never `jax`, and
+nothing of `ccphylo_tpu`.  The host modules its main path needs (io/,
+native/, ops/pack2bit.py, ops/snp.py, ops/veccmp.py, tree/exact.py,
+tree/newick_build.py, utils/, cli/) are its own copies, under the same
+names and at the same places as in the reference.
 
 Ported so far, the main path:
 - `dist` on 2-bit packed alignments -> all-pairs SNP matrix
   (ops/snp_torch.py; CUDA expansion kernels csrc/snp_expand.cu);
 - `tree -m dnj -b` on the exact-int32 packed u8 engine
-  (tree/packed_engine.py; CUDA batch-scan kernel csrc/qrow_mins.cu).
+  (tree/packed_engine.py; CUDA batch-scan kernels csrc/dnj_scan.cu and
+  csrc/qrow_mins.cu), every other method and dtype on the host exact
+  engine (tree/exact.py).
 
-Other subcommands are delegated to `ccphylo_tpu.cli`.
+Both run on the card unless the caller asks for the CPU
+(CCPHYLO_TORCH_DEVICE=cpu for the plain PyTorch versions,
+CCPHYLO_TORCH_DIST=host and CCPHYLO_TORCH_ENGINE=exact for the host
+numpy code).  The reference's other twelve subcommands are not ported
+yet and are refused by cli/main.py.
 """
 
 __version__ = "0.1.0"

@@ -23,79 +23,26 @@
 // (min, largest index at min) pair each, and reduce within the block by
 // warp shuffles.  The TPU version's 8x sublane over-read, its one-hot
 // lane writes and its int32-only reductions are dropped.
+//
+// The row body lives in row_min.cuh, shared with dnj_scan.cu, which runs
+// every pass of a join's scan in one launch; this kernel serves the
+// engine's host-driven loop of passes (ops/scan.py::dnj_scan_passes).
 
-#include <climits>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "row_min.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kIBig = INT_MAX;
-
-// the better of two (min, index) pairs: smaller value, then larger index
-__device__ __forceinline__ void take_better(int& best, int& bidx, int ob,
-                                            int oi) {
-  if (ob < best || (ob == best && oi > bidx)) {
-    best = ob;
-    bidx = oi;
-  }
-}
-
-__global__ void qrow_mins_kernel(const int* __restrict__ rows, int co,
-                                 const uint4* __restrict__ words,
-                                 const int* __restrict__ sd2, int n,
-                                 int* __restrict__ rmin,
-                                 int* __restrict__ rarg) {
+__global__ void __launch_bounds__(kThreads)
+qrow_mins_kernel(const int* __restrict__ rows, int co,
+                 const uint4* __restrict__ words,
+                 const int* __restrict__ sd2, int n, int* __restrict__ rmin,
+                 int* __restrict__ rarg) {
   const int k = blockIdx.x;
-  const int r = rows[k];
-  const unsigned sdr = (unsigned)sd2[r];
-  const uint4* row = words + (size_t)r * (n / 16);
-  const int4* sd4 = reinterpret_cast<const int4*>(sd2);
-  int best = kIBig, bidx = -1;
-  const int nvec = (r + 15) / 16;
-  // columns rise within a thread, so `<=` keeps the last index at the min
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-    const uint4 w4 = row[v];
-    const uint32_t ws[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int4 s4 = sd4[4 * v + j];
-      const int ss[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = 16 * v + 4 * j + b;
-        const unsigned cell = (ws[j] >> (8 * b)) & 0xFFu;
-        const int q = (int)((unsigned)co * cell - sdr - (unsigned)ss[b]);
-        if (c < r && q <= best) {
-          best = q;
-          bidx = c;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    take_better(best, bidx, __shfl_down_sync(0xffffffffu, best, off),
-                __shfl_down_sync(0xffffffffu, bidx, off));
-  __shared__ int sb[kThreads / 32], si[kThreads / 32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) {
-    sb[warp] = best;
-    si[warp] = bidx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    best = lane < kThreads / 32 ? sb[lane] : kIBig;
-    bidx = lane < kThreads / 32 ? si[lane] : -1;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      take_better(best, bidx, __shfl_down_sync(0xffffffffu, best, off),
-                  __shfl_down_sync(0xffffffffu, bidx, off));
-    if (lane == 0) {
-      rmin[k] = best;
-      rarg[k] = best == kIBig ? n - 1 : bidx;
-    }
+  int best, bidx;
+  row_min_block(rows[k], co, words, sd2, n, best, bidx);
+  if (threadIdx.x == 0) {
+    rmin[k] = best;
+    rarg[k] = best == kIBig ? n - 1 : bidx;
   }
 }
 

@@ -15,7 +15,7 @@ from .tree.packed_engine import state_from_npz
 
 
 def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
-                   device="cpu") -> dict:
+                   engine_state=None, device="cpu") -> dict:
     """Convert whichever of these is given; returns a dict with the
     same keys:
 
@@ -25,7 +25,9 @@ def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
       the same leading shape, (..., 2*W32) int32 (`inc32_to_pairmask`);
     - words: (npad, npad/4) u32 packed u8 matrix -> int32 tensor;
     - ckpt: path of a packed-engine checkpoint npz (the JAX engine's
-      CCPHYLO_TPU_CKPT format) -> (engine state dict, joins done).
+      CCPHYLO_TPU_CKPT format) -> (engine state dict, joins done);
+    - engine_state: the JAX packed engine's state as a mapping of its
+      state keys to numpy arrays -> the port's engine state dict.
     """
     out = {}
     if seqs is not None:
@@ -37,4 +39,6 @@ def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
     if ckpt is not None:
         with np.load(ckpt) as d:
             out["ckpt"] = (state_from_npz(d, device), int(d["meta"][0]))
+    if engine_state is not None:
+        out["engine_state"] = state_from_npz(engine_state, device)
     return out

@@ -2,10 +2,11 @@
 
 Each source ``csrc/<stem>.cu`` is compiled by nvcc for ``sm_90a`` into
 a shared library with a plain C interface, named by a hash of its
-content and flags, in ``ccphylo_tpu_torch/_build/`` (git-ignored), and
-loaded with ctypes.  Builds run at first use, every missing source at
-once with one nvcc process each, so a fresh checkout builds everything
-on its first kernel call.
+content, the shared headers (``csrc/*.cuh``) and the flags, in
+``ccphylo_tpu_torch/_build/`` (git-ignored), and loaded with ctypes.
+Builds run at first use, every missing source at once with one nvcc
+process each, so a fresh checkout builds everything on its first kernel
+call.
 
 There is no fallback: a failed build, a refused launch or a non-zero
 ``cudaGetLastError()`` raises.  Every C entry point launches on the
@@ -17,6 +18,7 @@ then counts the launch in `launches`.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -46,6 +48,15 @@ ENTRY_POINTS = {
         # rows, K, co, words, n, sd2, rmin, rarg, stream
         "qrow_mins": [_P, _I, _I, _P, _I, _P, _P, _P, _P],
     },
+    "dnj_scan": {
+        # words, sd2, n, Q, P, seed, m_t, co, K, scratch, out, stream
+        "dnj_scan": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    },
+}
+# source stem -> {C function that launches nothing: argtypes}; each
+# returns an int of its own meaning (see `query`)
+QUERIES = {
+    "dnj_scan": {"dnj_scan_max_blocks": []},
 }
 
 # launches of each kernel since the last reset_launches()
@@ -71,8 +82,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> str:
-    with open(os.path.join(CSRC, stem + ".cu"), "rb") as fh:
-        h = hashlib.sha256(fh.read())
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC, stem + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
@@ -113,7 +127,8 @@ def _lib(stem: str) -> ctypes.CDLL:
     if lib is None:
         build_all()
         lib = ctypes.CDLL(_lib_path(stem))
-        for fn, argtypes in ENTRY_POINTS[stem].items():
+        for fn, argtypes in {**ENTRY_POINTS[stem],
+                             **QUERIES.get(stem, {})}.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
@@ -133,3 +148,9 @@ def launch(stem: str, fn: str, *args, device: torch.device) -> None:
         raise RuntimeError(f"{fn}: CUDA error {err} "
                            f"({lib.error_string(err).decode()})")
     launches[fn] += 1
+
+
+def query(stem: str, fn: str, *args) -> int:
+    """Call the non-launching C function `fn` of csrc/<stem>.cu (one of
+    QUERIES) and return its int."""
+    return getattr(_lib(stem), fn)(*args)

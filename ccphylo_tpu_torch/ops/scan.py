@@ -1,9 +1,18 @@
-"""Batch-scan row minima of the packed DNJ engine (counterpart of
-ops/scan_pallas.py).
+"""Batch scan of the packed DNJ engine (counterpart of
+ops/scan_pallas.py and of the batch-scan while_loop of
+tree/packed_engine.py:157-214).
 
-`qrow_mins` launches the hand-written CUDA kernel csrc/qrow_mins.cu on
-a CUDA tensor and takes its plain PyTorch version, `qrow_mins_plain`
-(the jnp expression of tree/packed_engine.py:183-189), on a CPU tensor.
+Two kernels, each with its plain PyTorch version beside it; a wrapper
+launches its kernel on a CUDA tensor and takes the plain version only
+for a CPU tensor:
+
+- `qrow_mins` (csrc/qrow_mins.cu): the row minima of one pass.  Plain
+  version `qrow_mins_plain`, the jnp expression of
+  tree/packed_engine.py:183-189.
+- `dnj_scan` (csrc/dnj_scan.cu): the whole scan of one join, every pass
+  of it, in one cooperative launch.  Plain version `dnj_scan_plain`,
+  the host-driven loop of passes `dnj_scan_passes` over
+  `qrow_mins_plain`.
 """
 
 from __future__ import annotations
@@ -11,8 +20,9 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .select import IBIG, consts, topk_mask_indices
 
-IBIG = 2 ** 31 - 1
+_max_blocks: dict = {}  # device -> co-resident blocks of dnj_scan
 
 
 def qrow_mins_plain(rows: torch.Tensor, co: int, words: torch.Tensor,
@@ -59,3 +69,109 @@ def qrow_mins(rows: torch.Tensor, co: int, words: torch.Tensor,
                  words.data_ptr(), n, sd2.data_ptr(), rmin.data_ptr(),
                  rarg.data_ptr(), device=words.device)
     return rmin, rarg
+
+
+def dnj_scan_passes(words: torch.Tensor, sD2: torch.Tensor,
+                    Q: torch.Tensor, P: torch.Tensor, seed: torch.Tensor,
+                    m_t: int, co: int, K: int, qrow=qrow_mins):
+    """The batch scan of one join as a host-driven loop of passes
+    (reference bcond/bbody, tree/packed_engine.py:157-214).
+
+    words: (n, n/4) int32; sD2, Q, P: (n,) int32; seed: (1,) int64;
+    m_t: rows still active; co: Q row coefficient on raw cells; K:
+    candidate rows per pass.  Starting from the seed row's cached
+    minimum, revalidates the K best candidate rows per pass (`qrow`
+    gives their true minima) until no row's cached Q undercuts the
+    current minimum; Q and P are updated in place.  Each pass costs one
+    host read.  Returns (4,) int32 on the device of `words`: the picked
+    pair (i, j), the passes made, the rows whose Q changed."""
+    dev = words.device
+    BIG, ZERO, NEG1 = consts(dev)
+    Qs = Q[seed]
+    seed_ok = (seed != 0) & (Qs != IBIG)
+    minv = torch.where(seed_ok, Qs, BIG)
+    pi = torch.where(seed_ok, seed, ZERO)
+    pj = torch.where(seed_ok, P[seed].long(), ZERO)
+    Q_pre = Q.clone()
+    cols = torch.arange(1, m_t, dtype=torch.int32, device=dev)
+    npass = 0
+    while True:
+        cm = Q[1:m_t] < minv
+        if not bool(cm.any()):
+            break
+        rows = topk_mask_indices(cm, cols, K)
+        valid = rows >= 1
+        r = rows.clamp_min(0)
+        rmin, rarg = qrow(r, co, words, sD2)
+        rminv = torch.where(valid, rmin, BIG)
+        # C-exact cache gating: a row is revalidated only while it beats
+        # the running minimum of everything scanned before it
+        rm = torch.cummin(torch.cat([minv, rminv[:-1]]), dim=0).values
+        rl = r.long()
+        Qr = Q[rl]
+        reval = valid & (Qr < rm)
+        # padding entries all target row 0 and write back its own value
+        Q.scatter_(0, rl, torch.where(reval, rmin, Qr))
+        P.scatter_(0, rl, torch.where(reval, rarg, P[rl]))
+        bmin = rminv.min()
+        atmin = rminv == bmin
+        bi = torch.where(atmin, rows, NEG1).max()
+        karg = torch.where(atmin & (rows == bi), rarg, ZERO).max()
+        better = bmin < minv
+        minv = torch.where(better, bmin, minv)
+        pi = torch.where(better, bi.long(), pi)
+        pj = torch.where(better, karg.long(), pj)
+        npass += 1
+    return torch.cat([pi, pj, torch.full_like(pi, npass),
+                      (Q != Q_pre).sum().view(1)]).to(torch.int32)
+
+
+def dnj_scan_plain(words, sD2, Q, P, seed, m_t: int, co: int, K: int):
+    """Plain version of `dnj_scan`: `dnj_scan_passes` over
+    `qrow_mins_plain`."""
+    return dnj_scan_passes(words, sD2, Q, P, seed, m_t, co, K,
+                           qrow=qrow_mins_plain)
+
+
+def dnj_scan(words: torch.Tensor, sD2: torch.Tensor, Q: torch.Tensor,
+             P: torch.Tensor, seed: torch.Tensor, m_t: int, co: int,
+             K: int) -> torch.Tensor:
+    """`dnj_scan_passes`'s contract, in one launch and with one host
+    read left to the caller (the result).  On a CUDA tensor: the
+    dnj_scan kernel, K co-resident blocks in a cooperative launch; it
+    needs n % 128 == 0, 16-byte aligned words, sD2 and Q, and K within
+    what the card holds at once."""
+    if words.device.type == "cpu":
+        return dnj_scan_plain(words, sD2, Q, P, seed, m_t, co, K)
+    dev = words.device
+    n, W = words.shape
+    for name, t in (("words", words), ("sD2", sD2), ("Q", Q), ("P", P)):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"{name}: expected a contiguous int32 tensor "
+                             f"on {dev}")
+    if seed.dtype != torch.int64 or seed.shape != (1,) or seed.device != dev:
+        raise ValueError(f"seed: expected a (1,) int64 tensor on {dev}")
+    if 4 * W != n or n % 128 or not (sD2.shape == Q.shape == P.shape
+                                     == (n,)):
+        raise ValueError(f"bad shapes: words {tuple(words.shape)}, sD2 "
+                         f"{tuple(sD2.shape)}, Q {tuple(Q.shape)}, P "
+                         f"{tuple(P.shape)}")
+    if words.data_ptr() % 16 or sD2.data_ptr() % 16 or Q.data_ptr() % 16:
+        raise ValueError("words, sD2 and Q must be 16-byte aligned")
+    if not 1 <= m_t <= n:
+        raise ValueError(f"m_t = {m_t} outside [1, {n}]")
+    if dev not in _max_blocks:
+        with torch.cuda.device(dev):
+            _max_blocks[dev] = build.query("dnj_scan", "dnj_scan_max_blocks")
+    if not 1 <= K <= _max_blocks[dev]:
+        raise ValueError(
+            f"K = {K}: a cooperative launch of dnj_scan holds 1 to "
+            f"{_max_blocks[dev]} blocks on {dev} (a value <= 0 is a CUDA "
+            "error code or a card without cooperative launch)")
+    buf = torch.empty(4 + 6 * K, dtype=torch.int32, device=dev)
+    out = buf[:4]
+    build.launch("dnj_scan", "dnj_scan", words.data_ptr(), sD2.data_ptr(),
+                 n, Q.data_ptr(), P.data_ptr(), seed.data_ptr(), int(m_t),
+                 int(co), K, buf[4:].data_ptr(), out.data_ptr(), device=dev)
+    return out

@@ -5,6 +5,18 @@ from __future__ import annotations
 
 import torch
 
+IBIG = 2 ** 31 - 1
+_CONSTS: dict = {}
+
+
+def consts(dev):
+    """0-d int32 (IBIG, 0, -1) on `dev`: torch.where with a Python
+    scalar launches one more kernel to materialize it."""
+    if dev not in _CONSTS:
+        _CONSTS[dev] = tuple(torch.tensor(v, dtype=torch.int32, device=dev)
+                             for v in (IBIG, 0, -1))
+    return _CONSTS[dev]
+
 
 def topk_mask_indices(mask: torch.Tensor, idx: torch.Tensor,
                       K: int) -> torch.Tensor:

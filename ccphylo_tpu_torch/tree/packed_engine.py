@@ -15,10 +15,10 @@ trajectory is exact on any device: records are bit-identical to the JAX
 engine and, after the float64 limb replay on the host (`limbs_host`),
 the Newick bytes equal the host exact -b engine's.
 
-The join loop is driven from the host.  Each batch-scan pass costs one
-host sync (the candidate test of the reference's while_loop); its final
-pass also brings the picked pair (i, j) to the host, so the rest of the
-join indexes rows and columns with plain integers.  Two TPU workarounds
+The join loop is driven from the host.  The batch scan of a join is one
+kernel launch (ops/scan.py::dnj_scan) and one host read, which brings
+the picked pair (i, j) to the host, so the rest of the join indexes
+rows and columns with plain integers.  Two TPU workarounds
 of the reference are not carried over: compile-cache shape bucketing
 (rows are padded to a multiple of 512 only) and the sibling-row rebuild
 of a word column (a byte column is written directly).
@@ -32,17 +32,20 @@ import time
 import numpy as np
 import torch
 
-from ccphylo_tpu.tree.newick_build import (byteshift_fix, form_last_bi_node,
-                                           form_last_node, form_node)
-
-from ..ops.scan import qrow_mins
-from ..ops.select import topk_mask_indices
+from ..ops.scan import dnj_scan, dnj_scan_passes, dnj_scan_plain
+from ..ops.select import IBIG, consts
 from ..utils.torchconfig import device as default_device
+from .newick_build import (byteshift_fix, form_last_bi_node,
+                           form_last_node, form_node)
 from .segmenting import run_segmented
 
-IBIG = 2 ** 31 - 1
 _CH = 512  # init row chunk
-_CONSTS: dict = {}
+
+# the batch scan of a join, by name: one launch per join; the
+# host-driven loop of passes over the qrow_mins kernel; the plain
+# PyTorch version (the reference of the tests and of the smoke run)
+SCANS = {"fused": dnj_scan, "passes": dnj_scan_passes,
+         "plain": dnj_scan_plain}
 
 _STATE_KEYS = ("words", "sD2", "Q", "P", "seed", "I", "J", "DIJ2",
                "SDI2", "SDJ2", "stats")
@@ -111,15 +114,6 @@ def _packed_init(words: torch.Tensor, m: int):
 # one join
 
 
-def _consts(dev):
-    """0-d int32 (IBIG, 0, -1) on `dev`: torch.where with a Python
-    scalar launches one more kernel to materialize it."""
-    if dev not in _CONSTS:
-        _CONSTS[dev] = tuple(torch.tensor(v, dtype=torch.int32, device=dev)
-                             for v in (IBIG, 0, -1))
-    return _CONSTS[dev]
-
-
 def _last_min(q: torch.Tensor, idx: torch.Tensor):
     """(min, largest index at the min) of q over idx[:len(q)], as (1,)
     tensors; (IBIG, 0) for an empty q."""
@@ -127,70 +121,32 @@ def _last_min(q: torch.Tensor, idx: torch.Tensor):
         z = torch.zeros(1, dtype=torch.int32, device=q.device)
         return z + IBIG, z
     mn = q.min().view(1)
-    neg1 = _consts(q.device)[2]
+    neg1 = consts(q.device)[2]
     return mn, torch.where(q == mn, idx[:q.numel()], neg1).max().view(1)
 
 
-def _one_join(st: dict, t: int, m: int, kbatch: int, qrow, idx):
+def _one_join(st: dict, t: int, m: int, kbatch: int, scan, idx):
     """Join t (reference one_join, tree/packed_engine.py:151-345) on
-    state `st`, in place."""
+    state `st`, in place.  `scan` is the batch scan (ops/scan.py)."""
     words, sD2, Q, P = st["words"], st["sD2"], st["Q"], st["P"]
     D8 = words.view(torch.uint8)
     dev = words.device
-    BIG, ZERO, NEG1 = _consts(dev)
+    BIG, ZERO, NEG1 = consts(dev)
     m_t = m - t
     co = 2 * (m_t - 2)  # Q row coefficient on raw cells
 
-    seed = st["seed"]
-    Qs = Q[seed]
-    seed_ok = (seed != 0) & (Qs != IBIG)
-    minv = torch.where(seed_ok, Qs, BIG)
-    pi = torch.where(seed_ok, seed, ZERO)
-    pj = torch.where(seed_ok, P[seed].long(), ZERO)
-
-    # batch scan: revalidate the K best candidate rows per pass until no
-    # row's cached Q undercuts the current minimum
-    Q_pre = Q.clone()
-    cols = idx[1:m_t]
-    npass = 0
-    while True:
-        cm = Q[1:m_t] < minv
-        more, i, j = torch.cat([cm.any().view(1).long(), pi, pj]).tolist()
-        if not more:
-            break
-        rows = topk_mask_indices(cm, cols, kbatch)
-        valid = rows >= 1
-        r = rows.clamp_min(0)
-        rmin, rarg = qrow(r, co, words, sD2)
-        rminv = torch.where(valid, rmin, BIG)
-        # C-exact cache gating: a row is revalidated only while it beats
-        # the running minimum of everything scanned before it
-        rm = torch.cummin(torch.cat([minv, rminv[:-1]]), dim=0).values
-        rl = r.long()
-        Qr = Q[rl]
-        reval = valid & (Qr < rm)
-        # padding entries all target row 0 and write back its own value
-        Q.scatter_(0, rl, torch.where(reval, rmin, Qr))
-        P.scatter_(0, rl, torch.where(reval, rarg, P[rl]))
-        bmin = rminv.min()
-        atmin = rminv == bmin
-        bi = torch.where(atmin, rows, NEG1).max()
-        karg = torch.where(atmin & (rows == bi), rarg, ZERO).max()
-        better = bmin < minv
-        minv = torch.where(better, bmin, minv)
-        pi = torch.where(better, bi.long(), pi)
-        pj = torch.where(better, karg.long(), pj)
-        npass += 1
-    stats = st["stats"]
-    stats[0] += npass
-    stats[1] += (Q != Q_pre).sum().to(torch.int32)
+    # batch scan: revalidate the best candidate rows until no row's
+    # cached Q undercuts the current minimum; the join's one host read
+    res = scan(words, sD2, Q, P, st["seed"], m_t, co, kbatch)
+    i, j = res[:2].tolist()
+    st["stats"][:2] += res[2:]
 
     last = m_t - 1
     st["I"][t], st["J"][t] = i, j
     if i == 0 and j == 0:  # no joinable pair
         st["DIJ2"][t] = st["SDI2"][t] = st["SDJ2"][t] = 0
         Q[last] = IBIG
-        st["seed"] = torch.zeros_like(seed)
+        st["seed"] = torch.zeros_like(st["seed"])
         return
 
     ci = D8[i, :m_t].to(torch.int32)
@@ -332,15 +288,15 @@ def _ckpt_load(path, n, m, kbatch, device):
 
 
 def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
-                     hooks=None, qrow=qrow_mins):
+                     hooks=None, scan: str = "fused"):
     """All m-2 DNJ joins over the packed u8 matrix, in place.
 
     words: (npad, npad/4) int32 (use `pack_words`); m: active taxa.
     Returns (I, J, DIJ2, SDI2, SDJ2, d_last2, words): int32 join records
     in u = 1/(2*ByteScale) units (convert limbs with `limbs_host`) on
     the device of `words`, and the final words buffer.  `hooks`, if
-    given, is passed to run_segmented; `qrow` is the batch-scan row-min
-    function (the kernel wrapper by default).
+    given, is passed to run_segmented; `scan` names the batch scan, one
+    of SCANS (identical records).
 
     CCPHYLO_TORCH_CKPT=/path/file.npz snapshots the state every
     CCPHYLO_TORCH_CKPT_EVERY_S seconds (default 300) at a fenced segment
@@ -350,6 +306,10 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
     uninterrupted run."""
     n, W = words.shape
     assert 4 * W == n, "words must tile a square byte matrix"
+    if scan not in SCANS:
+        raise ValueError(f"scan must be one of {sorted(SCANS)}, not "
+                         f"{scan!r}")
+    scan_fn = SCANS[scan]
     m = int(m)
     dev = words.device
     ckpt_path, ckpt_every = _ckpt_config()
@@ -368,7 +328,7 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
 
     def seg_call(st, t0, t1):
         for t in range(t0, t1):
-            _one_join(st, t, m, kbatch, qrow, idx)
+            _one_join(st, t, m, kbatch, scan_fn, idx)
         return st
 
     last_ckpt = [time.perf_counter()]
@@ -451,7 +411,7 @@ def _records_to_newick(I, J, LI, LJ, d_last, n, names, flag, precision):
 def build_tree_packed(flat64: np.ndarray, n: int, names: list,
                       flag: int = 0, precision: int = 9,
                       bytescale: float = 1.0, device=None,
-                      qrow=qrow_mins) -> bytes:
+                      scan: str = "fused") -> bytes:
     """Packed-u8 DNJ on the device; Newick bytes (no ';').
 
     Loads quantize like loadPhy -b (round 0.5, phy.c:473-475); complete
@@ -465,7 +425,7 @@ def build_tree_packed(flat64: np.ndarray, n: int, names: list,
     Dq[(iu[0], iu[1])] = qv
     Dq[(iu[1], iu[0])] = qv
     I, J, DIJ2, SDI2, SDJ2, d_last2, _ = dnj_joins_packed(
-        pack_words(Dq, dev), n, qrow=qrow)
+        pack_words(Dq, dev), n, scan=scan)
     LI, LJ = limbs_host(I, J, DIJ2, SDI2, SDJ2, n, bytescale,
                         neg_limbs=bool(flag & 2))
     d_last = float(int(d_last2)) / (2.0 * float(bytescale))

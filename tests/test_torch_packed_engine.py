@@ -1,8 +1,10 @@
 """The port's packed exact-integer DNJ engine
 (ccphylo_tpu_torch/tree/packed_engine.py, plain scan on the CPU) against
 the JAX engine ccphylo_tpu.tree.packed_engine and the host exact -b
-engine.  Everything compared is an integer or the bytes of a Newick
-string, so every comparison is bit-exact (tolerance 0)."""
+engine of both packages, with each of the engine's scans (`fused`, one
+launch per join; `passes`, the host-driven loop over qrow_mins; `plain`).
+Everything compared is an integer or the bytes of a Newick string, so
+every comparison is bit-exact (tolerance 0)."""
 
 import numpy as np
 import pytest
@@ -15,6 +17,8 @@ import ccphylo_tpu_torch.tree.packed_engine as tpe
 from ccphylo_tpu.io.qseqs import Name
 from ccphylo_tpu.tree.exact import build_tree
 from ccphylo_tpu_torch.interop import state_from_jax
+from ccphylo_tpu_torch.io.qseqs import Name as PortName
+from ccphylo_tpu_torch.tree.exact import build_tree as port_build_tree
 from ccphylo_tpu_torch.tree import segmenting
 
 REC = ("I", "J", "DIJ2", "SDI2", "SDJ2")
@@ -68,6 +72,31 @@ def test_records_match_jax_engine(n, seed, hi):
                                   jpe.dnj_joins_packed.last_stats)
 
 
+@pytest.mark.parametrize("scan", sorted(tpe.SCANS))
+@pytest.mark.parametrize("kbatch", [128, 8])
+def test_every_scan_matches_jax_engine(scan, kbatch):
+    """Records, the final byte matrix and the scan statistics (passes,
+    changed rows) of each scan equal the JAX engine's, also where a
+    join takes several passes (kbatch 8)."""
+    n = 150
+    rng = np.random.RandomState(21)
+    qv = rng.randint(0, 40, n * (n - 1) // 2).astype(np.uint8)
+    Dq = _square(qv, n, tpe.pad_packed(n))
+    ours = _port(Dq, n, kbatch=kbatch, scan=scan)
+    stats = tpe.dnj_joins_packed.last_stats.copy()
+    ref = _jax(Dq, n, kbatch=kbatch)
+    _assert_same(ours, ref)
+    np.testing.assert_array_equal(ours[2], ref[2])
+    np.testing.assert_array_equal(stats, jpe.dnj_joins_packed.last_stats)
+    assert stats[0] > (n - 2 if kbatch == 8 else 0)
+
+
+def test_unknown_scan_is_refused():
+    Dq = _square(np.ones(45, np.uint8), 10, tpe.pad_packed(10))
+    with pytest.raises(ValueError, match="fused"):
+        _port(Dq, 10, scan="nope")
+
+
 def test_kbatch_invariance():
     rng = np.random.RandomState(11)
     n = 200
@@ -90,6 +119,14 @@ def test_newick_matches_host_exact_b(seed):
                                  [Name(b"t%03d" % i, 32) for i in range(n)],
                                  bytescale=bs, device="cpu")
     assert ours == exact
+    # the port's own host engine and names, and the passes scan
+    port_exact = port_build_tree(
+        flat.copy(), n, [PortName(b"t%03d" % i, 32) for i in range(n)],
+        "dnj", dtype="b", bytescale=bs)
+    passes = tpe.build_tree_packed(
+        flat.copy(), n, [PortName(b"t%03d" % i, 32) for i in range(n)],
+        bytescale=bs, device="cpu", scan="passes")
+    assert port_exact == exact and passes == exact
 
 
 class _Killed(Exception):
@@ -141,6 +178,27 @@ def test_resume_from_checkpoint(tmp_path, monkeypatch, writer):
     monkeypatch.setattr(tpe, "_packed_init", _no_init)
     _assert_same(_port(Dq, n), ref)
     assert not (tmp_path / "dnj.ckpt.npz").exists()  # cleaned up
+
+
+@pytest.mark.parametrize("writer,reader", [("fused", "passes"),
+                                           ("passes", "fused")])
+def test_resume_across_scans(tmp_path, monkeypatch, writer, reader):
+    """A snapshot written under one scan resumes under the other and
+    gives the uninterrupted records and statistics."""
+    n = 220
+    rng = np.random.RandomState(8)
+    qv = rng.randint(0, 30, n * (n - 1) // 2).astype(np.uint8)
+    Dq = _square(qv, n, tpe.pad_packed(n))
+    ref = _port(Dq, n, kbatch=16, scan="plain")
+    stats = tpe.dnj_joins_packed.last_stats.copy()
+    monkeypatch.setenv("CCPHYLO_TORCH_CKPT", str(tmp_path / "x.npz"))
+    monkeypatch.setenv("CCPHYLO_TORCH_CKPT_EVERY_S", "0")
+    monkeypatch.setattr(segmenting, "SEG", 64)
+    with pytest.raises(_Killed):
+        _port(Dq, n, kbatch=16, scan=writer, hooks=_killer)
+    monkeypatch.setattr(tpe, "_packed_init", _no_init)
+    _assert_same(_port(Dq, n, kbatch=16, scan=reader), ref)
+    np.testing.assert_array_equal(tpe.dnj_joins_packed.last_stats, stats)
 
 
 def test_jax_engine_resumes_port_checkpoint(tmp_path, monkeypatch):

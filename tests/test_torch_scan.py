@@ -1,7 +1,12 @@
-"""The port's batch-scan row minima (ccphylo_tpu_torch/ops/scan.py, plain
-version on the CPU) against the Pallas kernel ops/scan_pallas.qrow_mins
-run in interpret mode, in the cases of tests/test_scan_pallas.py; and
-the port's topk_mask_indices against ops/select.py.  Bit-exact."""
+"""The port's batch scan (ccphylo_tpu_torch/ops/scan.py, plain versions on
+the CPU).  Row minima against the Pallas kernel
+ops/scan_pallas.qrow_mins run in interpret mode, in the cases of
+tests/test_scan_pallas.py; topk_mask_indices against ops/select.py; the
+whole scan of a join, `dnj_scan_plain`, on states taken from a run of
+the JAX engine, against that engine's next state; and a numpy model of
+the algorithm of csrc/dnj_scan.cu (the CUDA kernel cannot run here)
+against `dnj_scan_plain` on the same states.  Everything is an integer:
+tolerance 0."""
 
 import numpy as np
 import pytest
@@ -9,8 +14,11 @@ import torch
 
 import jax.numpy as jnp
 
+import ccphylo_tpu.tree.packed_engine as jpe
+import ccphylo_tpu_torch.tree.packed_engine as tpe
 from ccphylo_tpu.ops import select as jselect
 from ccphylo_tpu.ops.scan_pallas import qrow_mins as pallas_qrow_mins
+from ccphylo_tpu_torch.interop import state_from_jax
 from ccphylo_tpu_torch.ops import scan, select
 
 IBIG = 2 ** 31 - 1
@@ -79,3 +87,197 @@ def test_topk_mask_indices_matches_jax(seed, n, K, p):
     ref = jselect.topk_mask_indices(jnp.asarray(mask), jnp.asarray(idx), K)
     assert ours.dtype == torch.int32 and ours.shape == (K,)
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+# ---------------------------------------------------------------------
+# the whole scan of a join
+
+
+def _jax_states(n, seed, hi, K, monkeypatch):
+    """States of the JAX packed engine before every join of one run:
+    [(joins done, {key: numpy array})], the last one the final state."""
+    rng = np.random.RandomState(seed)
+    qv = rng.randint(0, hi, n * (n - 1) // 2).astype(np.uint8)
+    Dq = np.zeros((tpe.pad_packed(n),) * 2, np.uint8)
+    iu = np.tril_indices(n, -1)
+    Dq[(iu[0], iu[1])] = qv
+    Dq[(iu[1], iu[0])] = qv
+    words = jpe.pack_words(Dq)
+    npad = words.shape[0]
+    sD2, Q, P, sd = jpe._packed_init(words, jnp.int32(n))
+    z = np.zeros(npad, np.int32)
+    states = [(0, dict(zip(jpe._STATE_KEYS, (
+        np.asarray(words), np.asarray(sD2), np.asarray(Q), np.asarray(P),
+        np.asarray(sd), z, z, z, z, z, np.zeros(4, np.int32)))))]
+
+    def snap(state, done, total):
+        states.append((done, {k: np.array(v) for k, v in
+                              zip(jpe._STATE_KEYS, state)}))
+
+    monkeypatch.setenv("CCPHYLO_TPU_SEG", "1")
+    monkeypatch.setenv("CCPHYLO_TPU_SEG_FIXED", "1")
+    jpe.dnj_joins_packed(words, jnp.int32(n), kbatch=K, hooks=snap)
+    assert [d for d, _ in states] == list(range(n - 1))
+    return states
+
+
+def _port_state(d):
+    """The port's engine state on copies of the arrays of `d` (the port
+    updates its state in place)."""
+    return state_from_jax(engine_state={k: np.array(v) for k, v in
+                                        d.items()})["engine_state"]
+
+
+@pytest.mark.parametrize("n,seed,hi,K", [(90, 3, 200, 128), (90, 4, 6, 8),
+                                         (130, 5, 40, 4)])
+def test_dnj_scan_plain_steps_match_jax_engine(n, seed, hi, K, monkeypatch):
+    """One join of the port from each state of a JAX run — the plain
+    scan, then the join body — gives the JAX engine's next state: the
+    pair (i, j), Q, P, sD2, the byte matrix, the seed and the stats."""
+    states = _jax_states(n, seed, hi, K, monkeypatch)
+    idx = torch.arange(states[0][1]["Q"].shape[0], dtype=torch.int32)
+    passes = 0
+    for (t, before), (_, after) in zip(states[:-1], states[1:]):
+        st = _port_state(before)
+        tpe._one_join(st, t, n, K, scan.dnj_scan_plain, idx)
+        assert (st["I"][t], st["J"][t]) == (after["I"][t], after["J"][t])
+        for key in ("Q", "P", "sD2", "stats", "DIJ2", "SDI2", "SDJ2"):
+            np.testing.assert_array_equal(st[key].numpy(), after[key],
+                                          err_msg=f"{key} after join {t}")
+        np.testing.assert_array_equal(
+            st["words"].numpy().view(np.uint32), after["words"])
+        assert int(st["seed"]) == int(after["seed"])
+        passes = int(after["stats"][0])
+    if K < 128:
+        assert passes > n - 2  # some join took several passes
+
+
+def _wrap32(x):
+    return ((np.asarray(x, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31) \
+        .astype(np.int64)
+
+
+def _select_model(Q, hi, minv, k, warps=8):
+    """Row of rank k (descending) among the candidates below `hi`, and
+    their total, by the stripes, groups and lanes of dnj_scan.cu's
+    selection step."""
+    def cand(i):
+        return 1 <= i < hi and Q[i] < minv
+
+    G = (hi + 127) // 128
+    gpw = -(-G // warps)
+    stripes = []
+    for w in range(warps):
+        gtop = G - 1 - w * gpw
+        stripes.append(range(gtop, max(gtop - gpw + 1, 0) - 1, -1))
+    cnt = [sum(cand(128 * g + e) for g in st for e in range(128))
+           for st in stripes]
+    total = sum(cnt)
+    if k >= total:
+        return 0, total
+    above = 0
+    for w in range(warps):
+        if above <= k < above + cnt[w]:
+            break
+        above += cnt[w]
+    seen = above
+    for g in stripes[w]:
+        p = [[cand(128 * g + 4 * lane + e) for e in range(4)]
+             for lane in range(32)]
+        gt = sum(map(sum, p))
+        if seen + gt <= k:
+            seen += gt
+            continue
+        for lane in range(32):
+            rank = seen + sum(map(sum, p[lane + 1:]))
+            for e in (3, 2, 1, 0):
+                if p[lane][e]:
+                    if rank == k:
+                        return 128 * g + 4 * lane + e, total
+                    rank += 1
+    raise AssertionError("rank not found")
+
+
+def _kernel_model(D8, sD2, Q, P, seed, m_t, co, K):
+    """The algorithm of csrc/dnj_scan.cu on numpy arrays, Q and P in
+    place: each pass walks only below the last selected row of the pass
+    before, ends when a pass found at most K candidates, and counts the
+    changed rows where it writes them.  Returns (pi, pj, passes,
+    changed)."""
+    n = len(Q)
+    minv, pi, pj = IBIG, 0, 0
+    if seed != 0 and Q[seed] != IBIG:
+        minv, pi, pj = int(Q[seed]), seed, int(P[seed])
+    hi, npass, nchanged = m_t, 0, 0
+    while True:
+        rows, total = [], None
+        for k in range(K):  # one block each
+            r, total = _select_model(Q, hi, minv, k)
+            rows.append(r if k < total else -1)
+        if total == 0:
+            break
+        trip = []
+        for r in rows:
+            if r < 0:
+                trip.append((IBIG, -1))
+                continue
+            q = _wrap32(co * D8[r, :r].astype(np.int64) - sD2[r] - sD2[:r])
+            rmin = int(q.min())
+            rarg = int(np.flatnonzero(q == rmin).max())
+            trip.append((rmin, n - 1 if rmin == IBIG else rarg))
+        # after the grid barrier: block k gates and writes its own row
+        for k, r in enumerate(rows):
+            if r < 0:
+                continue
+            before = min([minv] + [v for v, _ in trip[:k]])
+            if Q[r] < before:
+                nchanged += int(trip[k][0] != Q[r])
+                Q[r], P[r] = trip[k]
+        bv, br, ba = IBIG, -1, 0
+        for (v, a), r in zip(trip, rows):
+            if v < bv or (v == bv and r > br):
+                bv, br, ba = v, r, a
+        if bv < minv:
+            minv, pi, pj = bv, br, ba
+        npass += 1
+        if total <= K:
+            break
+        hi = rows[K - 1]
+    return pi, pj, npass, nchanged
+
+
+@pytest.mark.parametrize("n,seed,hi,K", [(70, 3, 200, 128), (70, 4, 6, 8),
+                                         (200, 5, 40, 4), (300, 6, 3, 2)])
+def test_dnj_scan_kernel_algorithm_matches_plain(n, seed, hi, K,
+                                                 monkeypatch):
+    """The kernel's shortcuts (bounded walks, early end, changed rows
+    counted at the write) give dnj_scan_plain's result, Q and P on
+    every state of a run, stale caches and ties included."""
+    states = _jax_states(n, seed, hi, K, monkeypatch)
+    several = 0
+    for t, d in states[:-1]:
+        st = _port_state(d)
+        m_t = n - t
+        co = 2 * (m_t - 2)
+        Q, P = d["Q"].astype(np.int64), d["P"].astype(np.int64)
+        D8 = d["words"].view(np.uint8)
+        model = _kernel_model(D8, d["sD2"].astype(np.int64), Q, P,
+                              int(d["seed"]), m_t, co, K)
+        res = scan.dnj_scan_plain(st["words"], st["sD2"], st["Q"], st["P"],
+                                  st["seed"], m_t, co, K)
+        assert tuple(res.tolist()) == model, f"join {t}"
+        np.testing.assert_array_equal(st["Q"].numpy(), Q)
+        np.testing.assert_array_equal(st["P"].numpy(), P)
+        several += model[2] > 1
+    assert K == 128 or several > 0  # the bounded second walk was taken
+
+
+def test_dnj_scan_wrapper_checks_cuda_arguments():
+    """On the CPU the wrapper takes the plain version; the checks of the
+    CUDA route are reached only by a CUDA tensor."""
+    n = 512
+    words = torch.zeros((n, n // 4), dtype=torch.int32)
+    v = torch.zeros(n, dtype=torch.int32)
+    res = scan.dnj_scan(words, v.clone(), v.clone() + IBIG, v.clone(),
+                        torch.zeros(1, dtype=torch.int64), 5, 6, 128)
+    assert res.tolist() == [0, 0, 0, 0] and res.dtype == torch.int32
