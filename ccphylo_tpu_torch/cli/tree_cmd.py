@@ -8,6 +8,7 @@ matrix carried a '#'-comment, timings on stderr.
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 import tempfile
@@ -195,46 +196,145 @@ def main_tree(argv: list[str]) -> int:
                      precision, dtype, bytescale, threads)
 
 
-# values of CCPHYLO_TORCH_ENGINE that name an engine of the reference
-# with no counterpart yet, and the ROADMAP.md item that ports each
-_UNPORTED_ENGINES = {
-    "device": "A6 (tree/jax_engine.py) and A7 (tree/hclust_engine.py)",
-    "device64": "A6 (tree/jax_engine.py) and A7 (tree/hclust_engine.py)",
-    "sharded": "A10 (parallel/ on torch.distributed)",
-}
+_ENGINES = ("", "packed", "exact", "device", "device64")
+_HCLUST = ("upgma", "ff", "cf", "hnj", "nj", "mn")
 
 
 def _engine() -> str:
-    """CCPHYLO_TORCH_ENGINE: ``packed`` (default) or ``exact``."""
-    eng = os.environ.get("CCPHYLO_TORCH_ENGINE", "packed")
-    if eng in ("packed", "exact"):
+    """CCPHYLO_TORCH_ENGINE: unset (the card wherever its engines are
+    exact), ``device`` / ``device64`` (the reference's routing of the
+    float32 / float64 device engines), ``packed`` (only -m dnj -b leaves
+    the host) or ``exact`` (the host engine)."""
+    eng = os.environ.get("CCPHYLO_TORCH_ENGINE", "")
+    if eng in _ENGINES:
         return eng
-    if eng in _UNPORTED_ENGINES:
-        raise ArgError(f"CCPHYLO_TORCH_ENGINE={eng} is not ported yet: "
-                       f"ROADMAP.md item {_UNPORTED_ENGINES[eng]}; the "
-                       "engines are packed and exact.")
+    if eng == "sharded":
+        raise ArgError("CCPHYLO_TORCH_ENGINE=sharded is not ported yet: "
+                       "ROADMAP.md item A10 (parallel/ on "
+                       "torch.distributed); the engines are device, "
+                       "device64, packed and exact.")
     raise ArgError(f'Invalid value of CCPHYLO_TORCH_ENGINE: "{eng}" '
-                   "(packed or exact).")
+                   "(device, device64, packed or exact).")
+
+
+def _is_integer(flat) -> bool:
+    fl = np.asarray(flat)
+    return np.array_equal(fl, np.floor(fl))
+
+
+def _route(flat, method, dtype, bytescale):
+    """The join engine for this matrix and CCPHYLO_TORCH_ENGINE, as
+    (engine, store, precision, note).
+
+    engine: ``exact`` is the host engine (byte parity with the reference
+    for every method and dtype); ``packed`` the exact-int32 u8 engine
+    (tree/packed_engine.py); ``dnj`` the device DNJ engine on float
+    state, or with `store` ``u16`` / ``u8`` its quantized form
+    (tree/torch_engine.py); ``hclust`` the device engines of the six
+    other methods (tree/hclust_engine.py).  precision is ``float32`` or
+    ``float64`` for the device engines, else "".  All but ``exact`` run
+    on the torch device of utils/torchconfig.py (the card unless
+    CCPHYLO_TORCH_DEVICE says otherwise) and raise without it.  note is
+    a line for stderr where the host engine stands in, else "".
+
+    With the variable unset the card gets what it computes exactly, and
+    only complete matrices: -m dnj -b (packed); a double-precision
+    matrix of integer cells, any method (the float64 engines); -m dnj -s
+    under a power-of-two ByteScale (u16 cells, float64 compute).  There
+    every cell is a dyadic rational, and while cells and row sums fit
+    the 53 bits of a float64 every sum is exact and its order cannot
+    matter.  A join can add one fractional bit to a lineage, so the
+    bound depends on the tree's depth and the dispatcher cannot test it
+    on the matrix; chip_smoke.py reads the bits in use at n = 2048 on
+    the card and fails if a sum is inexact.  With missing cells the
+    one-sided updates store D_ik - L_i, L_i a quotient: not dyadic, and
+    a parallel sum on the card may differ from the host's left-to-right
+    sum in the last bit.  Those matrices, and everything else, run the
+    host engine; a double-precision matrix with a note.  ``device`` and
+    ``device64`` route as the reference does.
+    """
+    eng = _engine()
+    complete = not (np.asarray(flat) < 0).any()
+    host = ("exact", "", "", "")
+    if eng in ("", "packed") and method == "dnj" and dtype == "b" \
+            and complete:
+        return ("packed", "", "", "")
+    if eng in ("exact", "packed"):
+        return host
+    prec = "float32" if eng == "device" else "float64"
+    if eng == "" and dtype == "d" \
+            and not (complete and _is_integer(flat)):
+        why = "missing cells" if _is_integer(flat) \
+            else "non-integer distances"
+        return host[:3] + (
+            f"# ccphylo_tpu_torch: {why}: the device engines are "
+            "byte-parity on complete integer matrices only; using the "
+            "host engine (CCPHYLO_TORCH_ENGINE=device64 forces the "
+            "card).\n",)
+    if method in _HCLUST and dtype == "d":
+        # float-scope guard: for these three the device engine's sD
+        # reductions are not bitwise C sequential sums, so non-integer
+        # matrices can flip exact ties (tree/hclust_engine.py)
+        if method in ("ff", "hnj", "nj") and not _is_integer(flat):
+            return host[:3] + (
+                "# ccphylo_tpu_torch: non-integer distances with "
+                f"CCPHYLO_TORCH_ENGINE={eng} -m {method}: device engine "
+                "is not byte-parity on float data; using the host "
+                "engine.\n",)
+        return ("hclust", "", prec, "")
+    if method == "dnj" and dtype == "d":
+        return ("dnj", "", prec, "")
+    if method == "dnj" and dtype in ("s", "b") and complete:
+        if eng == "":
+            # the default route keeps to exact arithmetic: u16 cells
+            # under a power-of-two ByteScale (-b is the packed engine's)
+            dyadic = bytescale > 0 and math.frexp(bytescale)[0] == 0.5
+            return ("dnj", "u16", prec, "") if dtype == "s" and dyadic \
+                else host
+        return ("dnj", "u16" if dtype == "s" else "u8", prec, "")
+    return host
+
+
+def _engine_name(engine, store, prec) -> str:
+    """``exact``, ``packed``, ``float64``, ``u16/float32``,
+    ``hclust/float64``, ..."""
+    if not prec:
+        return engine
+    head = store or ("hclust" if engine == "hclust" else "")
+    return f"{head}/{prec}" if head else prec
 
 
 def _dispatch_build(flat, n, names, method, flag, precision, dtype,
                     bytescale, threads=1):
-    """Choose the join engine.
-
-    ``-m dnj -b`` on a complete matrix runs the packed exact-int32 u8
-    engine (tree/packed_engine.py) on the torch device of
-    utils/torchconfig.py, unless CCPHYLO_TORCH_ENGINE=exact.  Everything
-    else runs the host exact engine (byte parity with the reference for
-    every method and dtype): other methods and dtypes, and matrices with
-    missing (negative) cells, which quantized storage cannot hold.
-    """
-    if _engine() == "packed" and method == "dnj" and dtype == "b" \
-            and not (np.asarray(flat) < 0).any():
+    """Build the tree on the engine `_route` chooses; its name (see
+    `_engine_name`) is left in `_dispatch_build.last_engine`."""
+    engine, store, prec, note = _route(flat, method, dtype, bytescale)
+    sys.stderr.write(note)
+    _dispatch_build.last_engine = _engine_name(engine, store, prec)
+    if engine == "exact":
+        return build_tree(flat, n, names, method, flag, precision, dtype,
+                          bytescale, threads)
+    if engine == "packed":
         from ..tree.packed_engine import build_tree_packed
         return build_tree_packed(flat, n, names, flag, precision,
                                  bytescale=bytescale)
-    return build_tree(flat, n, names, method, flag, precision, dtype,
-                      bytescale, threads)
+    import torch
+    tdt = torch.float64 if prec == "float64" else torch.float32
+    if engine == "hclust":
+        from ..tree.hclust_engine import build_tree_hclust
+        return build_tree_hclust(flat, n, names, method=method, flag=flag,
+                                 precision=precision, dtype=tdt)
+    if store:
+        from ..tree.torch_engine import build_tree_q
+        return build_tree_q(flat, n, names, flag, precision,
+                            bytescale=bytescale, store=store,
+                            compute_dtype=tdt)
+    from ..tree.torch_engine import build_tree_float
+    # the batch scan is trajectory-exact (ties included); float64 state
+    # makes it bit-exact against the reference wherever the C's own
+    # float64 sums are reproduced
+    return build_tree_float(flat, n, names, flag, precision, dtype=tdt,
+                            scan="batch")
 
 
 def form_tree(inputfile, outputfile, flag, sep, quotes, method, precision,

@@ -2,7 +2,8 @@
 
 This system has no weights; its state is the 2-bit packed sequences
 with their include masks, and the packed u8 `words` buffer with the
-packed engine's state.  `state_from_jax` turns the JAX package's numpy
+packed engine's state, and the float, quantized and hclust engines'
+state.  `state_from_jax` turns the JAX package's numpy
 forms of each into the port's tensors (u32 data as int32 bit patterns).
 """
 
@@ -12,10 +13,12 @@ import numpy as np
 
 from .ops.snp_torch import inc32_to_pairmask, u32_tensor, u64_to_u32
 from .tree.packed_engine import state_from_npz
+from .tree.torch_engine import state_from_numpy
 
 
 def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
-                   engine_state=None, device="cpu") -> dict:
+                   engine_state=None, float_state=None,
+                   device="cpu") -> dict:
     """Convert whichever of these is given; returns a dict with the
     same keys:
 
@@ -27,7 +30,13 @@ def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
     - ckpt: path of a packed-engine checkpoint npz (the JAX engine's
       CCPHYLO_TPU_CKPT format) -> (engine state dict, joins done);
     - engine_state: the JAX packed engine's state as a mapping of its
-      state keys to numpy arrays -> the port's engine state dict.
+      state keys to numpy arrays -> the port's engine state dict;
+    - float_state: the state of the JAX float DNJ engine or of an hclust
+      engine as a mapping of its names (D, sD, N, Q, P, seed, I, J, LI,
+      LJ; Dq in place of D and no N for the quantized engine; no Q, P,
+      seed for nj/mn) to numpy arrays -> the state dict of
+      tree/torch_engine.py and tree/hclust_engine.py (u16 cells as
+      int16 bit patterns), ready for their `_*_segment` functions.
     """
     out = {}
     if seqs is not None:
@@ -41,4 +50,6 @@ def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
             out["ckpt"] = (state_from_npz(d, device), int(d["meta"][0]))
     if engine_state is not None:
         out["engine_state"] = state_from_npz(engine_state, device)
+    if float_state is not None:
+        out["float_state"] = state_from_numpy(float_state, device)
     return out

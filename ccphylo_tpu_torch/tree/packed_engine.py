@@ -35,9 +35,8 @@ import torch
 from ..ops.scan import dnj_scan, dnj_scan_passes, dnj_scan_plain
 from ..ops.select import IBIG, consts
 from ..utils.torchconfig import device as default_device
-from .newick_build import (byteshift_fix, form_last_bi_node,
-                           form_last_node, form_node)
 from .segmenting import run_segmented
+from .torch_engine import _host, _records_to_newick
 
 _CH = 512  # init row chunk
 
@@ -377,35 +376,6 @@ def limbs_host(I, J, DIJ2, SDI2, SDJ2, m: int, bytescale: float,
         Lj_c = np.where(Li < 0, Dij, np.where(Lj < 0, 0.0, Lj))
         Li, Lj = Li_c, Lj_c
     return Li, Lj
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _records_to_newick(I, J, LI, LJ, d_last, n, names, flag, precision):
-    """Host-side Newick assembly from the join records (reference
-    tree/jax_engine.py:786-809)."""
-    I = _host(I)
-    J = _host(J)
-    m = n
-    for t in range(max(n - 2, 0)):
-        i, j = int(I[t]), int(J[t])
-        if i == 0 and j == 0:
-            break  # no joinable pair left (missing data)
-        form_node(names[j], names[i], float(LJ[t]), float(LI[t]),
-                  precision)
-        m -= 1
-        names[i], names[m] = names[m], names[i]
-    last = form_last_bi_node if (flag & 1) else form_last_node
-    if m == 2:
-        last(names[0], names[1], float(d_last), precision)
-    else:
-        while m > 1:
-            m -= 1
-            last(names[0], names[m], -1.0, precision)
-    byteshift_fix(names[0])
-    return names[0].data
 
 
 def build_tree_packed(flat64: np.ndarray, n: int, names: list,

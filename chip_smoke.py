@@ -33,13 +33,38 @@ exits non-zero, no exception is caught:
    model, through `dist` into the packed engine (a 1 GiB u8 matrix);
    dist rows are checked against the host kernels and the first joins
    against a plain-scan run;
-5. CLI: python -m ccphylo_tpu_torch dist and tree -m dnj -b on
-   make_dataset files, on the card by default, byte-equal to the same
-   commands on the host code.
+5. engines: the float64 device engines of all seven tree methods
+   (tree/torch_engine.py, tree/hclust_engine.py) on phase 3's integer
+   SNP matrix as a double-precision matrix, through
+   tree_cmd._dispatch_build with no variable set: each Newick
+   byte-equal to the host exact engine's, the engine that ran
+   asserted, joins/s printed.  Then dnj on u16 cells (-s) and on u8
+   cells (`device64` -b), both byte-equal to the host engine; dnj,
+   upgma, cf and hnj on a matrix of random integers in [0, 25), far
+   from additive and dense in ties, byte-equal too; the same with 12%
+   of the cells missing (the default route goes to the host with its
+   note; `device64` runs on the card, equality printed); dnj on
+   float32 state (`device`; shape only, agreement with the float64
+   run printed); how many of float64's 53 bits the cells and row sums
+   of the SNP and the random run used (`exact_range`: every sum must
+   be exact); a non-integer copy of the SNP matrix (the default route
+   goes to the host with its note, `device64` -m upgma runs on the
+   card); and dnj in float64 at n = 8192 from phase 4's outbreak
+   model, timed, byte-equal to the host exact engine.  The host
+   engine's runs are made in worker processes after the card's timed
+   runs, but for the one at n = 8192, which takes minutes and runs in
+   one worker beside them;
+6. CLI: python -m ccphylo_tpu_torch dist, tree -m dnj -b, tree -m nj
+   and tree -m dnj on make_dataset files, on the card by default,
+   byte-equal to the same commands on the host code.
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
-named phases (kernels, main_path, scale, cli) and prints their results
-without the contract lines: for work on one phase.
+named phases (kernels, main_path, scale, engines, cli, profile) and
+prints their results without the contract lines: for work on one
+phase.  `profile` runs only when named: 64 joins of each device engine
+at n = 2048 on the host's clock and the next 64 in a torch.profiler
+window, for kernel launches, host reads, device time and the device's
+idle share per join.
 
 The last two lines are the `kernels` JSON and the contract line
 {"ok": true, "device": {...}}; before them, the card's name and power
@@ -48,12 +73,17 @@ limit as nvidia-smi reports them.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -63,13 +93,20 @@ from ccphylo_tpu_torch.cli import dist_cmd, tree_cmd
 from ccphylo_tpu_torch.io.qseqs import Name
 from ccphylo_tpu_torch.ops import build, scan, snp, snp_torch
 from ccphylo_tpu_torch.tree.exact import build_tree
+from ccphylo_tpu_torch.tree import hclust_engine as he
 from ccphylo_tpu_torch.tree import packed_engine as pe
 from ccphylo_tpu_torch.tree import segmenting
+from ccphylo_tpu_torch.tree import torch_engine as te
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 N_DIST, L_DIST = 2048, 1_000_000
 N_SCALE, L_SCALE = 32768, 100_000
+N_DEPTH = 8192       # the float64 DNJ engine's run at depth
+PROFILE_JOINS = 64   # joins under torch.profiler in the `profile` phase
+TREE_METHODS = ("dnj", "upgma", "ff", "cf", "hnj", "nj", "mn")
+RANDOM_METHODS = ("dnj", "upgma", "cf", "hnj")  # run on the random matrix
+MISSING_METHODS = ("dnj", "upgma")  # run on the matrix with missing cells
 EXP_ROWS, EXP_WORDS = 2048, 2048  # one genome chunk of the main path
 PREFIX_JOINS = 1024  # plain-scan check of the phase-4 run
 CHECKED_JOINS = 256  # joins of a run on which dnj_scan is held to plain
@@ -555,6 +592,7 @@ def phase_main_path(dev, g, res):
     log(f"Newick ({len(nwk)} bytes) equals the plain-scan run "
         f"({t_plain:.1f} s) and the host exact -b engine "
         f"({res['tree_host_exact_s']:.1f} s)")
+    return flat
 
 
 # ---------------------------------------------------------------------
@@ -615,7 +653,325 @@ def phase_scale(dev, g, res):
 
 
 # ---------------------------------------------------------------------
-# phase 5: the CLI on the card against the CLI on the host code
+# phase 5: the float and quantized device engines of every tree method
+
+
+def iso_names(n):
+    return [Name(b"iso%04d" % i, 32) for i in range(n)]
+
+
+def snp_flat(dev, g, n, L):
+    """The integer SNP distances of an outbreak made on the card, as a
+    loaded ltd matrix (float64, row-major lower triangle)."""
+    seqs, shared_inc, _ = outbreak(dev, g, n, L, per_sample=False)
+    pm = pack2(shared_inc[None].to(torch.uint8))[0]
+    D = snp_torch.snp_matrix(seqs, pm).cpu().numpy()
+    return D[np.tril_indices(n, -1)].astype(np.float64)
+
+
+def random_flat(dev, g, n, lo, hi, drop=0.0):
+    """A loaded ltd matrix of random integers in [lo, hi): far from
+    additive and dense in ties, so (D_ik + D_kj - D_ij) / 2 gains
+    fractional bits as fast as a lineage can.  `drop`: the share of
+    cells that are missing (-1)."""
+    cells = n * (n - 1) // 2
+    flat = torch.randint(lo, hi, (cells,), device=dev, generator=g).double()
+    if drop:
+        gone = torch.rand(cells, device=dev, generator=g) < drop
+        flat[gone] = -1.0
+    return flat.cpu().numpy()
+
+
+def assert_tree_shape(nwk, I, J, n):
+    """n-2 joins with j < i inside the active taxa, and a Newick with n
+    leaves."""
+    m_t = n - np.arange(n - 2)
+    assert len(I) == n - 2 and ((J >= 0) & (J < I) & (I < m_t)).all()
+    assert nwk.count(b"iso") == n and nwk.count(b",") == n - 1
+    assert nwk.count(b"(") == nwk.count(b")")
+
+
+def dispatch(flat, n, method, dtype, engine=None, bytescale=1.0):
+    """tree_cmd._dispatch_build at the CLI defaults under
+    CCPHYLO_TORCH_ENGINE=engine (None: unset); returns (Newick, seconds,
+    the engine that ran)."""
+    os.environ.pop("CCPHYLO_TORCH_ENGINE", None)
+    if engine:
+        os.environ["CCPHYLO_TORCH_ENGINE"] = engine
+    try:
+        nwk, t = synced(lambda: tree_cmd._dispatch_build(
+            flat, n, iso_names(n), method, 0, 9, dtype, bytescale))
+    finally:
+        os.environ.pop("CCPHYLO_TORCH_ENGINE", None)
+    return nwk, t, tree_cmd._dispatch_build.last_engine
+
+
+def host_tree(flat, n, method, dtype="d"):
+    """The host exact engine's Newick at the CLI defaults, and its
+    seconds (runs in a worker process of `phase_engines`)."""
+    t0 = time.perf_counter()
+    nwk = build_tree(flat.copy(), n, iso_names(n), method, dtype=dtype,
+                     bytescale=1.0)
+    return nwk, time.perf_counter() - t0
+
+
+def fraction_bits(A: np.ndarray) -> int:
+    """The most binary places after the point that a positive cell of A
+    holds."""
+    mant, exp = np.frexp(A[A > 0])
+    mant = (mant * 2.0 ** 53).astype(np.int64)
+    zeros = np.log2((mant & -mant).astype(np.float64)).astype(np.int64)
+    return int((53 - zeros - exp).max(initial=0))
+
+
+def exact_range(flat, n, dev, every=64):
+    """The float64 DNJ engine on the card, stopped every `every` joins
+    to read how far its state is from the end of float64's exact range:
+    the fractional bits of the cells, the bits a row sum needs (integer
+    bits of the largest sum plus those fractional bits), and whether
+    every sD equals the sum of its row taken in 64-bit-mantissa long
+    doubles on the host (it does while the sums are exact).  Complete
+    matrices only.  Returns (I, J, statistics)."""
+    D = torch.from_numpy(te.square_matrix(flat, n)).to(dev)
+    st = te._new_state(D, n)
+    out = {"fraction_bits": 0, "sum_bits": 0, "inexact_sums": 0,
+           "states_read": 0}
+    for t0 in range(0, n - 2, every):
+        m_t = n - t0
+        A = st["D"][:m_t, :m_t].cpu().numpy()
+        sD = st["sD"][:m_t].cpu().numpy()
+        wide = np.where(A >= 0, A, 0).astype(np.longdouble).sum(axis=1)
+        bits = fraction_bits(A)
+        out["fraction_bits"] = max(out["fraction_bits"], bits)
+        out["sum_bits"] = max(out["sum_bits"],
+                              bits + int(np.ceil(np.log2(sD.max() + 1))))
+        out["inexact_sums"] += int((wide != sD.astype(np.longdouble)).sum())
+        out["states_read"] += 1
+        te._dnj_segment(st, t0, min(t0 + every, n - 2), n)
+    return st["I"][:n - 2].copy(), st["J"][:n - 2].copy(), out
+
+
+def phase_engines(dev, g, res, flat=None):
+    for k in [k for k in os.environ if k.startswith("CCPHYLO_TORCH_")]:
+        del os.environ[k]  # the defaults: the card
+    if flat is None:  # run alone: the main path's model, its own seed
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 1)
+        flat = snp_flat(dev, g, N_DIST, L_DIST)
+    # the host exact engine runs in worker processes
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(4, mp_context=ctx) as pool:
+        engines_on_card(dev, g, res, flat, pool)
+
+
+def engines_on_card(dev, g, res, flat, pool):
+    n = N_DIST
+    assert np.array_equal(flat, np.floor(flat)) and flat.min() >= 0
+    out = res["engines"] = {}
+    joins = n - 2
+    runs = {}  # key -> (flat, method, dtype, Newick, seconds, engine)
+
+    # the matrix of the run at depth, first: its host run takes minutes,
+    # so one worker starts on it now and works beside the card's runs
+    # (one busy core of the host's); all other host runs wait for them
+    nd = N_DEPTH
+    dflat = snp_flat(dev, g, nd, L_SCALE)
+    f_depth = pool.submit(host_tree, dflat, nd, "dnj")
+
+    # every method on the default route; then dnj on u16 cells (-s, the
+    # default route) and on u8 cells (device64 -b)
+    te.dnj_joins(torch.zeros((64, 64), dtype=torch.float64, device=dev),
+                 64)  # warm-up outside the timed runs
+    for method in TREE_METHODS:
+        want = "float64" if method == "dnj" else "hclust/float64"
+        nwk, t, ran = dispatch(flat, n, method, "d")
+        assert ran == want, (method, ran)
+        runs[method] = (flat, method, "d", nwk, t, ran)
+    for dtype, engine, want in (("s", None, "u16/float64"),
+                                ("b", "device64", "u8/float64")):
+        nwk, t, ran = dispatch(flat, n, "dnj", dtype, engine)
+        assert ran == want, ran
+        runs["dnj -" + dtype] = (flat, "dnj", dtype, nwk, t, ran)
+
+    # the default route on a matrix that is not additive: random
+    # integers in [0, 25), the methods whose host run takes seconds
+    rflat = random_flat(dev, g, n, 0, 25)
+    for method in RANDOM_METHODS:
+        want = "float64" if method == "dnj" else "hclust/float64"
+        nwk, t, ran = dispatch(rflat, n, method, "d")
+        assert ran == want, (method, ran)
+        runs[method + ", random cells"] = (rflat, method, "d", nwk, t, ran)
+
+    # dnj on float32 state: shape only; agreement with float64 printed
+    nwk32, t32, ran32 = dispatch(flat, n, "dnj", "d", "device")
+    assert ran32 == "float32", ran32
+
+    # a non-integer copy: the default route is the host, with its note;
+    # device64 -m upgma runs on the card
+    noise = torch.rand(flat.shape[0], dtype=torch.float64, device=dev,
+                       generator=g).cpu().numpy()
+    fflat = flat + 0.5 * noise
+    note = io.StringIO()
+    with contextlib.redirect_stderr(note):
+        nwk_host, t_host, ran = dispatch(fflat, n, "upgma", "d")
+    assert ran == "exact", ran
+    assert note.getvalue().count("\n") == 1 \
+        and "CCPHYLO_TORCH_ENGINE=device64" in note.getvalue()
+    nwk, t, ran = dispatch(fflat, n, "upgma", "d", "device64")
+    assert ran == "hclust/float64", ran
+    assert nwk.count(b"iso") == n and nwk.count(b",") == n - 1
+    out["upgma_non_integer"] = {
+        "engine": ran, "s": t, "joins_per_s": joins / t,
+        "host_exact_s": t_host, "equals_host": nwk == nwk_host}
+    log(f"non-integer matrix, -m upgma: default route [exact] {t_host:.1f} "
+        f"s with its note; device64 [{ran}] {t:.3f} s, {joins / t:,.1f} "
+        f"joins/s, Newick equals the host engine's: {nwk == nwk_host}")
+
+    # at depth: dnj, float64, batch scan, n = N_DEPTH
+    D = torch.from_numpy(te.square_matrix(dflat, nd)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    (I, J, LI, LJ, d_last, _), t_depth = synced(lambda: te.dnj_joins(D, nd))
+    del D
+    nwk_depth = te._records_to_newick(I, J, LI, LJ, d_last, nd,
+                                      iso_names(nd), 0, 9)
+    assert_tree_shape(nwk_depth, I[:nd - 2], J[:nd - 2], nd)
+    assert np.isfinite(LI[:nd - 2]).all() and np.isfinite(LJ[:nd - 2]).all()
+    peak = torch.cuda.max_memory_allocated()
+
+    # the host exact engine on the same matrices, now that the card's
+    # runs are timed (nj and mn take it about a minute each); every
+    # Newick of a default route must equal its host twin's bytes
+    futures = {key: pool.submit(host_tree, fl, n, method, dtype)
+               for key, (fl, method, dtype, *_) in runs.items()}
+    mflat = random_flat(dev, g, n, 0, 25, drop=0.12)
+    f_miss = {m: pool.submit(host_tree, mflat, n, m)
+              for m in MISSING_METHODS}
+
+    # beside the workers, the card's runs whose time is not kept.
+    # Missing cells (12% of a random matrix): the default route is the
+    # host's, with its note; device64 runs on the card, and whether its
+    # bytes are the host's is printed, not asserted (no sum is exact)
+    note = io.StringIO()
+    with contextlib.redirect_stderr(note):
+        _, _, ran = dispatch(mflat, n, "cf", "d")
+    assert ran == "exact" and note.getvalue().count("\n") == 1 \
+        and "missing cells" in note.getvalue(), (ran, note.getvalue())
+    missing = {}
+    for method in MISSING_METHODS:
+        nwk, _, ran = dispatch(mflat, n, method, "d", "device64")
+        assert ran == ("float64" if method == "dnj" else "hclust/float64")
+        assert nwk.count(b"iso") == n
+        missing[method] = (nwk, ran)
+
+    # the float32 run's records, and how much of float64's exact range
+    # the float64 runs above used
+    D32 = torch.from_numpy(te.square_matrix(flat, n)).to(dev, torch.float32)
+    I32, J32 = (a[:joins] for a in te.dnj_joins(D32, n)[:2])
+    assert_tree_shape(nwk32, I32, J32, n)
+    I64, J64, out["exact_range_snp"] = exact_range(flat, n, dev)
+    _, _, out["exact_range_random"] = exact_range(rflat, n, dev)
+    for key in ("exact_range_snp", "exact_range_random"):
+        s = out[key]
+        assert s["inexact_sums"] == 0 and s["sum_bits"] <= 53, (key, s)
+        log(f"{key} n={n} dnj float64: cells hold at most "
+            f"{s['fraction_bits']} fractional bits, a row sum needs at "
+            f"most {s['sum_bits']} of 53 bits; every sD equals its row's "
+            f"long-double sum in the {s['states_read']} states read")
+    same = (I32 == I64) & (J32 == J64)
+    first = int(np.argmin(same)) if not same.all() else joins
+    out["dnj_float32"] = {"engine": ran32, "s": t32,
+                          "joins_per_s": joins / t32,
+                          "joins_equal_float64": int(same.sum()),
+                          "first_differing_join": first}
+    log(f"tree n={n} -m dnj [{ran32}]: {t32:.3f} s, {joins / t32:,.1f} "
+        f"joins/s; {int(same.sum())} of {joins} joins pick the float64 "
+        f"run's pair, the first {first} in a row")
+
+    hosts = {key: f.result() for key, f in futures.items()}
+    host_miss = {m: f.result() for m, f in f_miss.items()}
+    host_depth, t_host_depth = f_depth.result()
+    for key, (_, method, dtype, nwk, t, ran) in runs.items():
+        host, t_host = hosts[key]
+        assert nwk == host, f"-m {key}: Newick differs from the host " \
+                            "exact engine"
+        out[key] = {"engine": ran, "s": t, "joins_per_s": joins / t,
+                    "host_exact_s": t_host}
+        log(f"tree n={n} -m {key} [{ran}]: {t:.3f} s, {joins / t:,.1f} "
+            f"joins/s; Newick ({len(nwk)} bytes) equals the host exact "
+            f"engine ({t_host:.1f} s in a worker process)")
+    for method, (nwk, ran) in missing.items():
+        host, t_host = host_miss[method]
+        out[method + ", 12% missing"] = {
+            "engine": ran, "host_exact_s": t_host,
+            "equals_host": nwk == host}
+        log(f"12% missing cells, device64 -m {method} [{ran}]: Newick "
+            f"equals the host engine's: {nwk == host} (host {t_host:.1f} "
+            f"s); the default route is the host's")
+    assert nwk_depth == host_depth, \
+        f"dnj at n={nd}: Newick differs from the host exact engine"
+    out["dnj_depth"] = {"n": nd, "s": t_depth,
+                        "joins_per_s": (nd - 2) / t_depth,
+                        "peak_bytes": peak, "host_exact_s": t_host_depth}
+    log(f"tree n={nd} dnj float64 batch: {t_depth:.1f} s, "
+        f"{(nd - 2) / t_depth:,.1f} joins/s, peak device memory "
+        f"{peak / 2 ** 20:.0f} MiB; Newick ({len(nwk_depth)} bytes) equals "
+        f"the host exact engine ({t_host_depth:.1f} s in a worker process)")
+
+
+def phase_profile(dev, res):
+    """Kernel launches, host reads (device-to-host copies) and device
+    time per join of each device engine at n = 2048: joins 64..128 are
+    timed on the host's clock, joins 128..192 run in a torch.profiler
+    window; the idle share is device time over the un-profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+    n, k = N_DIST, PROFILE_JOINS
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    D0 = torch.from_numpy(te.square_matrix(snp_flat(dev, g, n, L_DIST), n))
+    out = res["profile"] = {}
+    for method in TREE_METHODS:
+        if method == "dnj":
+            st, seg = te._new_state(D0.to(dev), n), te._dnj_segment
+        else:
+            st, seg = he._new_state(D0.to(dev), n, method)
+            seg = functools.partial(seg, method=method)
+
+        def run(t0, t1):
+            seg(st, t0, t1, n)
+            torch.cuda.synchronize()
+
+        run(0, k)
+        _, plain_wall = synced(lambda: run(k, 2 * k))
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(2 * k, 3 * k)
+        wall = time.perf_counter() - t0
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in dev_events if "Memcpy" not in e.name
+                   and "Memset" not in e.name]
+        reads = [e for e in dev_events if "Memcpy DtoH" in e.name]
+        busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+        assert kernels and reads, "the profiler saw no device activity"
+        idle = 1 - busy_us / 1e6 / plain_wall
+        out[method] = {"launches_per_join": len(kernels) / k,
+                       "host_reads_per_join": len(reads) / k,
+                       "device_ms_per_join": busy_us / 1e3 / k,
+                       "wall_ms_per_join": plain_wall * 1e3 / k,
+                       "wall_ms_per_join_profiled": wall * 1e3 / k,
+                       "device_idle_share": idle}
+        log(f"profile -m {method} at n={n}: joins {2 * k}..{3 * k} under "
+            f"the profiler: {len(kernels) / k:.1f} kernel launches, "
+            f"{len(reads) / k:.2f} host reads, {busy_us / 1e3 / k:.3f} ms "
+            f"of device time per join ({wall * 1e3 / k:.3f} ms wall); "
+            f"joins {k}..{2 * k} without it: {plain_wall * 1e3 / k:.3f} ms "
+            f"wall per join, {plain_wall * 1e6 / k / (len(kernels) / k):.1f}"
+            f" us per launch, device idle {idle:.1%}")
+
+
+# ---------------------------------------------------------------------
+# phase 6: the CLI on the card against the CLI on the host code
 
 
 def phase_cli(res):
@@ -651,11 +1007,17 @@ def phase_cli(res):
         nwk = run(targs, base, d)
         assert nwk == run(targs, host_env, d)
         assert nwk.endswith(b";\n")
-    log("CLI dist -f 17 / -f 19 and tree -m dnj -b on the card equal the "
-        "host code's bytes")
+        # the float64 device engines: an integer matrix, no variable set
+        for method in ("nj", "dnj"):
+            targs = ["tree", "-m", method, "-i", phy]
+            nwk = run(targs, base, d)
+            assert nwk == run(targs, host_env, d), method
+            assert nwk.endswith(b";\n")
+    log("CLI dist -f 17 / -f 19, tree -m dnj -b, tree -m nj and tree -m "
+        "dnj on the card equal the host code's bytes")
 
 
-PHASES = ("kernels", "main_path", "scale", "cli")
+PHASES = ("kernels", "main_path", "scale", "engines", "cli", "profile")
 
 
 def main() -> int:
@@ -677,11 +1039,14 @@ def main() -> int:
         return 2
     res["build_s"] = build.build_all()
     log(f"built kernels in {res['build_s']:.1f} s")
+    shared = {}  # the main path's SNP matrix, for the engines phase
     for name, phase in zip(PHASES, (
             lambda: phase_kernels(dev, g, res),
-            lambda: phase_main_path(dev, g, res),
-            lambda: phase_scale(dev, g, res), lambda: phase_cli(res))):
-        if not only or name in only:
+            lambda: shared.update(flat=phase_main_path(dev, g, res)),
+            lambda: phase_scale(dev, g, res),
+            lambda: phase_engines(dev, g, res, shared.get("flat")),
+            lambda: phase_cli(res), lambda: phase_profile(dev, res))):
+        if name in only or (not only and name != "profile"):
             phase()
     res["total_s"] = time.perf_counter() - t_start
 
