@@ -15,8 +15,19 @@ The all-pairs SNP fills of fasta input (`_batch_shared`,
 `_batch_pairwise`) run on the torch device of utils/torchconfig.py
 (default ``cuda``) through ops/snp_torch.py; CCPHYLO_TORCH_DIST=host
 asks for the numpy kernels of ops/snp.py instead.  Integer counts are
-identical either way.  `.mat` input runs the host metrics of
-ops/veccmp.py.
+identical either way.
+
+`.mat` input (`_mat_device_spec`): the all-pairs metric table of
+ops/matdist_torch.py runs on the torch device for the metrics whose
+float64 sums it computes exactly, whatever their order (-d l1, linf, z:
+bytes equal to the host's); every other metric runs the host metrics
+of ops/veccmp.py, with one stderr line naming the variable that forces
+the device.  CCPHYLO_TORCH_DIST=device sends every metric the table
+knows to the device in float64 (sums in the device's order: ~1e-12 of
+the host's, not byte parity); CCPHYLO_TORCH_DIST=host keeps all of them
+on the host.  The device route scores its pairs once every file is
+loaded; stderr keeps the host route's order of lines, and an exit at a
+sample that falls short once stripped comes after all files were read.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ from ..io.phylip import (print_phy, print_phy_update, get_size_phy,
 from ..ops import pack2bit, snp
 from ..ops.snp_torch import (inc32_to_pairmask, snp_matrix,
                              snp_matrix_pairwise, u32_tensor, u64_to_u32)
+from ..ops.matdist_torch import (EXACT_METRICS, cmp_mats_from_table,
+                                 pair_table, resolve_metric)
 from ..ops.veccmp import get_veccmp, cmp_mats
 from ..utils.torchconfig import device
 from .args import Args, ArgError
@@ -461,11 +474,24 @@ def mat_pairwise_matrix(filenames, target, include, cfg):
     N = QuantCells(cfg["dtype"], cfg["bytescale"],
                    mmap_dir=cfg.get("mmap_dir"))
     stripped = {}
+    # batched table on the torch device for the metrics routed there:
+    # the pairs of sample i wait for the table, and so does every load
+    # message after them, so that stderr reads as on the host route
+    # (an exit at a -2 pair then comes after all files were read)
+    dev_spec = _mat_device_spec(cfg)
+    device_pairs = [] if dev_spec is not None else None
+
+    def say(msg):
+        if device_pairs:
+            device_pairs.append(msg)
+        else:
+            print(msg, file=sys.stderr)
+
     def load(i):
         tm = kma.load_mat_template(filenames[i], target)
         if tm is None:
-            print(f'Template ("{target.decode()}") is not included in:\t'
-                  f"{filenames[i]}", file=sys.stderr)
+            say(f'Template ("{target.decode()}") is not included in:\t'
+                f"{filenames[i]}")
         return tm
 
     # find first valid matrix (ltdmatrixthrd.c:417-465): validated on
@@ -502,29 +528,69 @@ def mat_pairwise_matrix(filenames, target, include, cfg):
                 include[i] = 0
             elif (tm.n_nucs(min_depth) < min_length
                   or tm.n_nucs(min_depth) < min_cov * tm.length):
-                print(f'Template ("{target.decode()}") did not exceed '
-                      f"threshold for inclusion:\t{filenames[i]}",
-                      file=sys.stderr)
+                say(f'Template ("{target.decode()}") did not exceed '
+                    f"threshold for inclusion:\t{filenames[i]}")
                 include[i] = 0
             else:
                 mat1 = tm.stripped()
                 stripped[i] = mat1
+                if device_pairs is None:
+                    def one(j, mat1=mat1):
+                        mat2 = stripped[j]
+                        return cmp_mats(
+                            mat1.counts, mat1.totals, mat2.counts,
+                            mat2.totals, cfg["norm"], min_depth,
+                            min_length, min_cov, cfg["veccmp"])
 
-                def one(j, mat1=mat1):
-                    mat2 = stripped[j]
-                    return cmp_mats(
-                        mat1.counts, mat1.totals, mat2.counts,
-                        mat2.totals, cfg["norm"], min_depth,
-                        min_length, min_cov, cfg["veccmp"])
-
-                js = [j for j in range(i) if include[j]]
-                for j, (dist, rinc) in _pair_map(
-                        cfg.get("threads", 1), one, js):
-                    _emit_mat_pair(D, N, dist, rinc, target,
-                                   filenames, i, j)
+                    js = [j for j in range(i) if include[j]]
+                    for j, (dist, rinc) in _pair_map(
+                            cfg.get("threads", 1), one, js):
+                        _emit_mat_pair(D, N, dist, rinc, target,
+                                       filenames, i, j)
+                else:
+                    device_pairs.append(i)
         i += 1
 
+    if device_pairs is not None:
+        # one table over all included pairs; gates and rows_inc are
+        # integer-exact, the sums are the device's
+        table = _mat_table(dev_spec, stripped, sorted(stripped), min_depth)
+        for i in device_pairs:
+            if isinstance(i, str):  # a load message, in its place
+                print(i, file=sys.stderr)
+                continue
+            for j in range(i):
+                if include[j]:
+                    dist, rinc = _mat_pair_from_table(
+                        table, i, j, stripped[i], stripped[j], cfg)
+                    _emit_mat_pair(D, N, dist, rinc, target, filenames,
+                                   i, j)
     return D, N, include
+
+
+def _mat_table(dev_spec, stripped, order, min_depth):
+    """The all-pairs metric table of ops/matdist_torch.py over the
+    stripped samples `order` (ascending: a pair (i, j), j < i, reads the
+    strict lower triangle), on the torch device."""
+    pos_of = {s: a for a, s in enumerate(order)}
+    S, R = pair_table(dev_spec, [stripped[s].counts for s in order],
+                      [stripped[s].totals for s in order], min_depth,
+                      device=device(), lower=True)
+    nnucs = {s: stripped[s].n_nucs(min_depth) for s in order}
+    return S, R, pos_of, nnucs
+
+
+def _mat_pair_from_table(table, i, j, mat1, mat2, cfg):
+    """cmp_mats' (dist, rows_inc) of samples i (mat1) and j (mat2) from
+    `_mat_table`'s table."""
+    S, R, pos_of, nnucs = table
+    if mat2.length > mat1.length:
+        # cmpMats' 'sample2 longer' sentinel: N = the total of the first
+        # overflowing row (matcmp.c:469-471)
+        return -1.0, int(mat2.totals[mat1.length])
+    return cmp_mats_from_table(
+        S, R, pos_of[i], pos_of[j], mat1.length, mat2.length, nnucs[j],
+        cfg["norm"], cfg["min_depth"], cfg["min_length"], cfg["min_cov"])
 
 
 def _emit_mat_pair(D, N, dist, rinc, target, filenames, i, j):
@@ -750,6 +816,30 @@ def _use_device() -> bool:
     return os.environ.get("CCPHYLO_TORCH_DIST", "") != "host"
 
 
+def _mat_device_spec(cfg):
+    """The metric spec of ops/matdist_torch.py when `.mat` distances of
+    cfg["method"] run on the torch device, else None (the host metrics).
+    With CCPHYLO_TORCH_DIST unset the device gets the metrics whose
+    bytes it reproduces (EXACT_METRICS); another metric it knows stays
+    on the host, and one stderr line per run (noted in `cfg`) says how
+    to force it."""
+    mode = os.environ.get("CCPHYLO_TORCH_DIST", "")
+    if mode == "host":
+        return None
+    spec = resolve_metric(cfg["method"], cfg.get("alpha", 0.05))
+    if spec is None:
+        return None
+    if mode == "device" or cfg["method"] in EXACT_METRICS:
+        return spec
+    if not cfg.get("mat_noted"):
+        cfg["mat_noted"] = True
+        print(f"# ccphylo_tpu_torch: -d {cfg['method']} on .mat input "
+              "runs the host metrics (its float sums depend on their "
+              "order); CCPHYLO_TORCH_DIST=device forces the card, within "
+              "~1e-12 of these cells", file=sys.stderr)
+    return None
+
+
 def _batch_shared(seqs, idxs, shared_inc):
     """All-pairs SNP counts for the included samples under the shared
     mask: the int8 Gram of ops/snp_torch.py on the torch device, or the
@@ -862,6 +952,17 @@ def mat_union_matrix(files, target, include, cfg):
 
     num_file = len(include)
 
+    # union mode on the torch device: one all-pairs metric table over
+    # the loadable samples; the stateful -2 exclusion walk below stays
+    # on the host (pair values do not depend on it, only which pairs
+    # are emitted)
+    table = None
+    dev_spec = _mat_device_spec(cfg)
+    if dev_spec is not None:
+        order = [s for s in range(num_file)
+                 if include[s] and get_stripped(s) is not None]
+        table = _mat_table(dev_spec, stripped, order, min_depth)
+
     for i in range(1, num_file):
         if include[i]:
             tm = load_raw(i)
@@ -884,6 +985,9 @@ def mat_union_matrix(files, target, include, cfg):
                 mat2 = get_stripped(j)
                 if mat2 is None:
                     return -2.0, 0
+                if table is not None:
+                    return _mat_pair_from_table(table, i, j, mat1, mat2,
+                                                cfg)
                 return cmp_mats(
                     mat1.counts, mat1.totals, mat2.counts,
                     mat2.totals, cfg["norm"], min_depth, min_length,

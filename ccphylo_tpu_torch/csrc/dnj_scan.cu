@@ -153,7 +153,7 @@ dnj_scan_kernel(const uint4* __restrict__ words,
     // (2) row k, published for every block
     int rmin = kIBig, rarg = -1;
     if (valid) {
-      row_min_block(r, co, words, sd2, n, rmin, rarg);
+      row_min_block(r, r, co, words, sd2, n, rmin, rarg);
       if (rmin == kIBig) rarg = n - 1;  // as the masked full-width reduction
     }
     int* buf = scratch + (npass & 1) * 3 * K;

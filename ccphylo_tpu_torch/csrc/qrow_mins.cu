@@ -24,6 +24,12 @@
 // warp shuffles.  The TPU version's 8x sublane over-read, its one-hot
 // lane writes and its int32-only reductions are dropped.
 //
+// With `slotof` (the row-cache engine, tree/streamed_engine.py) `words`
+// is a cache of X rows and the cells of row r lie in storage row
+// slotof[r]; r itself still sets the c < r mask and sd2[r].  A row that
+// is not resident (slotof[r] < 0) is scanned as a row without columns,
+// as padding is, and never read.
+//
 // The row body lives in row_min.cuh, shared with dnj_scan.cu, which runs
 // every pass of a join's scan in one launch; this kernel serves the
 // engine's host-driven loop of passes (ops/scan.py::dnj_scan_passes).
@@ -35,11 +41,17 @@ namespace {
 __global__ void __launch_bounds__(kThreads)
 qrow_mins_kernel(const int* __restrict__ rows, int co,
                  const uint4* __restrict__ words,
-                 const int* __restrict__ sd2, int n, int* __restrict__ rmin,
+                 const int* __restrict__ sd2, int n,
+                 const int* __restrict__ slotof, int* __restrict__ rmin,
                  int* __restrict__ rarg) {
   const int k = blockIdx.x;
+  int r = rows[k], srow = r;
+  if (slotof != nullptr) {
+    srow = slotof[r];
+    if (srow < 0) r = srow = 0;
+  }
   int best, bidx;
-  row_min_block(rows[k], co, words, sd2, n, best, bidx);
+  row_min_block(r, srow, co, words, sd2, n, best, bidx);
   if (threadIdx.x == 0) {
     rmin[k] = best;
     rarg[k] = best == kIBig ? n - 1 : bidx;
@@ -52,12 +64,15 @@ extern "C" {
 
 // rows: K int32 row indices in [0, n); words: (n, n/4) u32, 16-byte
 // aligned; sd2: n int32, 16-byte aligned; n % 16 == 0; rmin, rarg: K int32.
+// slotof: null, or n int32 with slotof[r] the storage row of r in `words`,
+// then (X, n/4) u32, or < 0 where r is not resident.
 int qrow_mins(const void* rows, int K, int co, const void* words, int n,
-              const void* sd2, void* rmin, void* rarg, void* stream) {
+              const void* sd2, const void* slotof, void* rmin, void* rarg,
+              void* stream) {
   if (K > 0)
     qrow_mins_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)rows, co, (const uint4*)words, (const int*)sd2, n,
-        (int*)rmin, (int*)rarg);
+        (const int*)slotof, (int*)rmin, (int*)rarg);
   return (int)cudaGetLastError();
 }
 

@@ -37,13 +37,16 @@ __device__ __forceinline__ void take_better(int& best, int& bidx, int ob,
 // (kIBig, -1) for a row with no column.  Every thread of the block must
 // call it; two calls in one kernel must be separated by a block barrier
 // (the partials live in shared memory).  words and sd2 are 16-byte
-// aligned and n % 16 == 0.
-__device__ __forceinline__ void row_min_block(int r, int co,
+// aligned and n % 16 == 0.  The cells of row r are read from storage row
+// `srow` of `words`: r itself where the whole matrix is on the card, the
+// row's slot where `words` is a cache of rows; r still sets the c < r
+// mask and sd2[r].
+__device__ __forceinline__ void row_min_block(int r, int srow, int co,
                                               const uint4* __restrict__ words,
                                               const int* __restrict__ sd2,
                                               int n, int& best, int& bidx) {
   const unsigned sdr = (unsigned)sd2[r];
-  const uint4* row = words + (size_t)r * (n / 16);
+  const uint4* row = words + (size_t)srow * (n / 16);
   const int4* sd4 = reinterpret_cast<const int4*>(sd2);
   best = kIBig;
   bidx = -1;

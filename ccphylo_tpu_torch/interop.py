@@ -4,15 +4,18 @@ This system has no weights; its state is the 2-bit packed sequences
 with their include masks, and the packed u8 `words` buffer with the
 packed engine's state, and the float, quantized and hclust engines'
 state.  `state_from_jax` turns the JAX package's numpy
-forms of each into the port's tensors (u32 data as int32 bit patterns).
+forms of each into the port's tensors (u32 data as int32 bit patterns);
+`streamed_state_from_jax` does the same for the row-cache engine.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ops.snp_torch import inc32_to_pairmask, u32_tensor, u64_to_u32
 from .tree.packed_engine import state_from_npz
+from .tree.streamed_engine import _STATE_KEYS as _STREAMED_KEYS
 from .tree.torch_engine import state_from_numpy
 
 
@@ -53,3 +56,34 @@ def state_from_jax(*, seqs=None, includes=None, words=None, ckpt=None,
     if float_state is not None:
         out["float_state"] = state_from_numpy(float_state, device)
     return out
+
+
+# the JAX row-cache engine's state tuple (tree/streamed_engine.py)
+_JAX_STREAMED_KEYS = ("cache", "slotof", "rowof", "sD2", "Q", "P", "seed",
+                      "I", "J", "DIJ2", "SDI2", "SDJ2", "stats", "t", "ok",
+                      "miss")
+
+
+def streamed_state_from_jax(state, device="cpu"):
+    """The JAX row-cache engine's 16-tuple state, as numpy arrays in the
+    order of its `_STATE_KEYS`, -> (the port's state dict for
+    `StreamedDNJ.run(state=...)`, the joins done).  The cache words
+    cross as int32 bit patterns; residents of the JAX run stay resident,
+    its idle rows (joined away, slot not yet freed) among them.  The
+    caller replays the records of the joins done onto its host matrix
+    (`_host_replay_shift`) before it goes on."""
+    d = dict(zip(_JAX_STREAMED_KEYS, (np.asarray(x) for x in state)))
+    # a copy: the engine updates its cache in place
+    st = {"cache": u32_tensor(np.array(d["cache"], np.uint32), device)}
+    for k in ("slotof", "sD2", "Q", "P", "DIJ2", "SDI2", "SDJ2"):
+        st[k] = torch.from_numpy(np.array(d[k], np.int32)).to(device)
+    st["rowof"] = torch.from_numpy(np.array(d["rowof"], np.int64)).to(device)
+    st["seed"] = torch.tensor([int(d["seed"])], dtype=torch.long,
+                              device=device)
+    st["I"] = np.array(d["I"], np.int32)
+    st["J"] = np.array(d["J"], np.int32)
+    stats = np.zeros(4, np.int32)
+    stats[0] = d["stats"][0]  # scan passes
+    st["stats"] = torch.from_numpy(stats).to(device)
+    assert set(st) == set(_STREAMED_KEYS)
+    return st, int(d["t"])

@@ -100,6 +100,9 @@ def _load():
     p_i32 = ctypes.POINTER(ctypes.c_int32)
     lib.init_hnj_u8.restype = i64
     lib.init_hnj_u8.argtypes = [p_u8, i64, i64, p_i32, p_i32, p_i32]
+    lib.replay_join_u8.restype = i64
+    lib.replay_join_u8.argtypes = [p_u8, i64, i64, i64, i64, p_i32, p_i32,
+                                   p_i32, p_i32, p_i32]
     if lib.ccphylo_native_abi() != 1:
         return None
     _lib = lib

@@ -398,6 +398,112 @@ int64_t init_hnj_u8(const uint8_t *D, int64_t n, int64_t m,
     return seed < 0 ? 0 : seed;
 }
 
+// ---------------------------------------------------------------------------
+// Row-cache engine: replay of ONE join on the host matrix, with the
+// mirrors of the device's sD2 / Q / P caches (the bit-exact twin of
+// tree/streamed_engine.py::_replay_join_mirrored, which documents the
+// arithmetic; the reference join is dnj.c:985-1162).
+//
+// D: (n, n) u8, symmetric, updated in place: row j and byte column j
+// get the quantized new distances, and row `last` = m_t - 1 moves into
+// row and column i.  sD2, Q, P: n int32 mirrors, updated as the device
+// updates its own.  hot: n int32, receives the rows whose cached bound
+// the two column repairs lowered (first those of column j, then those
+// of column i, each ascending); the count is returned.  scratch: 2 * n
+// int32 of work space.  All q arithmetic runs in uint32 and is bitcast
+// to int32, so overflow wraps as numpy's and the device's does.
+int64_t replay_join_u8(uint8_t *D, int64_t n, int64_t i, int64_t j,
+                       int64_t m_t, int32_t *sD2, int32_t *Q, int32_t *P,
+                       int32_t *hot, int32_t *scratch) {
+    const int32_t big = INT32_MAX;
+    const uint32_t co = (uint32_t)(2 * (m_t - 3));
+    const int64_t last = m_t - 1;
+    uint8_t *ri = D + i * n, *rj = D + j * n;
+    const int32_t cij = ri[j];
+    int32_t *rowj = scratch;      // row j after the join, as int32
+    int32_t *rowi = scratch + n;  // row i after the move
+    uint32_t sumj = 0;
+    for (int64_t k = 0; k < n; ++k) {
+        const bool valid = k < m_t && k != i && k != j;
+        if (!valid) {
+            rowj[k] = rj[k];
+            continue;
+        }
+        const int32_t ci = ri[k], cj = rj[k];
+        int32_t d_new = ci + cj - cij;
+        if (d_new < 0) d_new = 0;
+        sD2[k] = (int32_t)((uint32_t)sD2[k]
+                           - (uint32_t)(2 * ci + 2 * cj - d_new));
+        sumj += (uint32_t)d_new;
+        int32_t q_new = (2 * d_new + 1) >> 2;
+        rowj[k] = q_new > 255 ? 255 : q_new;
+    }
+    sD2[j] = (int32_t)sumj;
+    for (int64_t k = 0; k < n; ++k) rj[k] = (uint8_t)rowj[k];
+    // rows >= m_t keep their cell of column j (rowj[k] is the old cell).
+    // A column is one byte per cache line and per page: these stores
+    // wait on memory and are most of the routine's time at large n.
+    for (int64_t k = 0; k < m_t; ++k) D[k * n + j] = (uint8_t)rowj[k];
+
+    int64_t nhot = 0;
+    const uint32_t sj = (uint32_t)sD2[j];
+    int32_t qmin = big, parg = -1;
+    for (int64_t k = 0; k < j; ++k) {
+        const int32_t q = (int32_t)(co * (uint32_t)rowj[k] - sj
+                                    - (uint32_t)sD2[k]);
+        if (q <= qmin) {
+            qmin = q;
+            parg = (int32_t)k;
+        }
+    }
+    Q[j] = qmin;
+    // numpy: the largest index at the minimum over ALL n entries, where
+    // masked entries hold `big`
+    P[j] = qmin == big ? 0 : parg;
+    for (int64_t k = j + 1; k < m_t; ++k) {
+        if (k == i) continue;
+        const int32_t q = (int32_t)(co * (uint32_t)rowj[k] - sj
+                                    - (uint32_t)sD2[k]);
+        if (q <= Q[k]) {
+            Q[k] = q;
+            P[k] = (int32_t)j;
+            hot[nhot++] = (int32_t)k;
+        }
+    }
+    if (i != last) {
+        const uint8_t *rl = D + last * n;
+        for (int64_t k = 0; k < n; ++k) rowi[k] = rl[k];
+        rowi[i] = 0;
+        for (int64_t k = 0; k < n; ++k) ri[k] = (uint8_t)rowi[k];
+        for (int64_t k = 0; k < n; ++k) D[k * n + i] = (uint8_t)rowi[k];
+        sD2[i] = sD2[last];
+        const uint32_t si = (uint32_t)sD2[i];
+        qmin = big;
+        parg = -1;
+        for (int64_t k = 0; k < i; ++k) {
+            const int32_t q = (int32_t)(co * (uint32_t)rowi[k] - si
+                                        - (uint32_t)sD2[k]);
+            if (q <= qmin) {
+                qmin = q;
+                parg = (int32_t)k;
+            }
+        }
+        Q[i] = qmin;
+        P[i] = qmin == big ? 0 : parg;
+        for (int64_t k = i + 1; k < last; ++k) {
+            const int32_t q = (int32_t)(co * (uint32_t)rowi[k] - si
+                                        - (uint32_t)sD2[k]);
+            if (q <= Q[k]) {
+                Q[k] = q;
+                P[k] = (int32_t)i;
+                hot[nhot++] = (int32_t)k;
+            }
+        }
+    }
+    Q[last] = big;
+    return nhot;
+}
+
 // version / health probe
 int32_t ccphylo_native_abi(void) { return 1; }
 

@@ -45,8 +45,8 @@ ENTRY_POINTS = {
         "snp_expand_pairwise": [_P, _I, _P, _I, _P, _P, _I, _I, _P],
     },
     "qrow_mins": {
-        # rows, K, co, words, n, sd2, rmin, rarg, stream
-        "qrow_mins": [_P, _I, _I, _P, _I, _P, _P, _P, _P],
+        # rows, K, co, words, n, sd2, slotof (or null), rmin, rarg, stream
+        "qrow_mins": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     },
     "dnj_scan": {
         # words, sd2, n, Q, P, seed, m_t, co, K, scratch, out, stream
@@ -59,8 +59,10 @@ QUERIES = {
     "dnj_scan": {"dnj_scan_max_blocks": []},
 }
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(); qrow_mins on
+# a row cache (its slot argument given) is counted under its own name
 launches = {fn: 0 for eps in ENTRY_POINTS.values() for fn in eps}
+launches["qrow_mins_slots"] = 0
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -138,16 +140,18 @@ def _lib(stem: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(stem: str, fn: str, *args, device: torch.device) -> None:
+def launch(stem: str, fn: str, *args, device: torch.device,
+           count: str | None = None) -> None:
     """Call C entry point `fn` of csrc/<stem>.cu on the current stream of
-    `device`; raise if the launch reports an error."""
+    `device`; raise if the launch reports an error.  The launch is
+    counted under `count` (default: `fn`)."""
     lib = _lib(stem)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} "
                            f"({lib.error_string(err).decode()})")
-    launches[fn] += 1
+    launches[count or fn] += 1
 
 
 def query(stem: str, fn: str, *args) -> int:

@@ -8,7 +8,9 @@ for a CPU tensor:
 
 - `qrow_mins` (csrc/qrow_mins.cu): the row minima of one pass.  Plain
   version `qrow_mins_plain`, the jnp expression of
-  tree/packed_engine.py:183-189.
+  tree/packed_engine.py:183-189.  With `slots` the matrix is a cache of
+  rows (tree/streamed_engine.py:209-229): row r is read from storage
+  row slots[r].
 - `dnj_scan` (csrc/dnj_scan.cu): the whole scan of one join, every pass
   of it, in one cooperative launch.  Plain version `dnj_scan_plain`,
   the host-driven loop of passes `dnj_scan_passes` over
@@ -26,54 +28,74 @@ _max_blocks: dict = {}  # device -> co-resident blocks of dnj_scan
 
 
 def qrow_mins_plain(rows: torch.Tensor, co: int, words: torch.Tensor,
-                    sd2: torch.Tensor):
+                    sd2: torch.Tensor, slots: torch.Tensor | None = None):
     """(rmin, rarg) int32 (K,): for each row r of `rows`, the minimum of
     q[c] = co*cell[r, c] - sd2[r] - sd2[c] over c < r (IBIG elsewhere)
-    and the largest c at that minimum."""
-    n = words.shape[0]
+    and the largest c at that minimum.  With `slots` (n,) int32, `words`
+    is a cache of rows, (X, n/4): the cells of row r lie in storage row
+    slots[r], and a row with slots[r] < 0 has no columns."""
+    n = sd2.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=words.device)
     rl = rows.long()
+    bound = rows
+    if slots is not None:
+        srow = slots[rl]
+        bound = torch.where(srow >= 0, rows, 0)
+        rl, srow = bound.long(), srow.clamp_min(0).long()
+    else:
+        srow = rl
     # the u32 words viewed as bytes are the u8 cells (little-endian lanes)
-    cells = words.view(torch.uint8)[rl].to(torch.int32)      # (K, n)
+    cells = words.view(torch.uint8)[srow].to(torch.int32)    # (K, n)
     q = co * cells - sd2[rl][:, None] - sd2[None, :]
-    q = torch.where(idx[None, :] < rows[:, None], q, IBIG)
+    q = torch.where(idx[None, :] < bound[:, None], q, IBIG)
     rmin = q.min(dim=1).values
     rarg = torch.where(q == rmin[:, None], idx[None, :], -1).max(dim=1)
     return rmin, rarg.values
 
 
 def qrow_mins(rows: torch.Tensor, co: int, words: torch.Tensor,
-              sd2: torch.Tensor):
+              sd2: torch.Tensor, slots: torch.Tensor | None = None):
     """`qrow_mins_plain`'s contract.  rows: (K,) int32 in [0, n), may
     repeat, 0 is padding; co: int; words: (n, n/4) int32 (u32 words,
-    four u8 cells each); sd2: (n,) int32.  On a CUDA tensor: the
+    four u8 cells each), or with `slots` (n,) int32 a cache of X rows,
+    (X, n/4), slots[r] < X; sd2: (n,) int32.  On a CUDA tensor: the
     qrow_mins kernel, which needs n % 16 == 0 and 16-byte aligned
     words and sd2."""
     if words.device.type == "cpu":
-        return qrow_mins_plain(rows, co, words, sd2)
-    n, W = words.shape
-    for name, t in (("rows", rows), ("words", words), ("sd2", sd2)):
-        if t.dtype != torch.int32 or not t.is_contiguous() \
-                or t.device != words.device:
+        return qrow_mins_plain(rows, co, words, sd2, slots)
+    X, W = words.shape
+    n = 4 * W
+    for name, t in (("rows", rows), ("words", words), ("sd2", sd2),
+                    ("slots", slots)):
+        if t is not None and (t.dtype != torch.int32
+                              or not t.is_contiguous()
+                              or t.device != words.device):
             raise ValueError(f"{name}: expected a contiguous int32 tensor "
                              f"on {words.device}")
-    if 4 * W != n or n % 16 or sd2.shape != (n,) or rows.dim() != 1:
+    if (slots is None and X != n) or n % 16 or sd2.shape != (n,) \
+            or rows.dim() != 1 or (slots is not None
+                                   and slots.shape != (n,)):
         raise ValueError(f"bad shapes: words {tuple(words.shape)}, sd2 "
-                         f"{tuple(sd2.shape)}, rows {tuple(rows.shape)}")
+                         f"{tuple(sd2.shape)}, rows {tuple(rows.shape)}"
+                         + ("" if slots is None
+                            else f", slots {tuple(slots.shape)}"))
     if words.data_ptr() % 16 or sd2.data_ptr() % 16:
         raise ValueError("words and sd2 must be 16-byte aligned")
     K = rows.shape[0]
     rmin = torch.empty(K, dtype=torch.int32, device=words.device)
     rarg = torch.empty(K, dtype=torch.int32, device=words.device)
     build.launch("qrow_mins", "qrow_mins", rows.data_ptr(), K, int(co),
-                 words.data_ptr(), n, sd2.data_ptr(), rmin.data_ptr(),
-                 rarg.data_ptr(), device=words.device)
+                 words.data_ptr(), n, sd2.data_ptr(),
+                 None if slots is None else slots.data_ptr(),
+                 rmin.data_ptr(), rarg.data_ptr(), device=words.device,
+                 count=None if slots is None else "qrow_mins_slots")
     return rmin, rarg
 
 
 def dnj_scan_passes(words: torch.Tensor, sD2: torch.Tensor,
                     Q: torch.Tensor, P: torch.Tensor, seed: torch.Tensor,
-                    m_t: int, co: int, K: int, qrow=qrow_mins):
+                    m_t: int, co: int, K: int, qrow=qrow_mins,
+                    ensure=None):
     """The batch scan of one join as a host-driven loop of passes
     (reference bcond/bbody, tree/packed_engine.py:157-214).
 
@@ -83,8 +105,12 @@ def dnj_scan_passes(words: torch.Tensor, sD2: torch.Tensor,
     minimum, revalidates the K best candidate rows per pass (`qrow`
     gives their true minima) until no row's cached Q undercuts the
     current minimum; Q and P are updated in place.  Each pass costs one
-    host read.  Returns (4,) int32 on the device of `words`: the picked
-    pair (i, j), the passes made, the rows whose Q changed."""
+    host read.  `ensure`, if given, is called before each pass's `qrow`
+    with the pass's rows as a list of ints (descending, -1 padding): the
+    host read of the pass then brings the rows themselves, and a caller
+    whose `words` is a cache of rows makes them resident there.
+    Returns (4,) int32 on the device of `words`: the picked pair
+    (i, j), the passes made, the rows whose Q changed."""
     dev = words.device
     BIG, ZERO, NEG1 = consts(dev)
     Qs = Q[seed]
@@ -97,9 +123,16 @@ def dnj_scan_passes(words: torch.Tensor, sD2: torch.Tensor,
     npass = 0
     while True:
         cm = Q[1:m_t] < minv
-        if not bool(cm.any()):
-            break
-        rows = topk_mask_indices(cm, cols, K)
+        if ensure is None:
+            if not bool(cm.any()):
+                break
+            rows = topk_mask_indices(cm, cols, K)
+        else:
+            rows = topk_mask_indices(cm, cols, K)
+            host_rows = rows.tolist()
+            if host_rows[0] < 0:
+                break
+            ensure(host_rows)
         valid = rows >= 1
         r = rows.clamp_min(0)
         rmin, rarg = qrow(r, co, words, sD2)

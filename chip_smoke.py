@@ -49,17 +49,42 @@ exits non-zero, no exception is caught:
    of the SNP and the random run used (`exact_range`: every sum must
    be exact); a non-integer copy of the SNP matrix (the default route
    goes to the host with its note, `device64` -m upgma runs on the
-   card); and dnj in float64 at n = 8192 from phase 4's outbreak
-   model, timed, byte-equal to the host exact engine.  The host
-   engine's runs are made in worker processes after the card's timed
-   runs, but for the one at n = 8192, which takes minutes and runs in
-   one worker beside them;
-6. CLI: python -m ccphylo_tpu_torch dist, tree -m dnj -b, tree -m nj
+   card); and dnj in float64 at n = 4096 from phase 4's outbreak
+   model, timed, byte-equal to the host exact engine (the depth is cut
+   to leave the script's time limit to the other phases: the host
+   engine needs 4-5 minutes at n = 8192).  The host engine's runs are
+   made in worker processes after the card's timed runs, but for the
+   three that take a minute or more (the one at depth, nj and mn),
+   which run in workers beside them;
+6. streamed (run right after phase 4, on its matrix): the row-cache
+   engine (tree/streamed_engine.py) on the n = 32768 u8 matrix held on
+   the host (1 GiB) with a cache of X = 8192 rows on the card: the first
+   8192 joins, records equal to the packed engine's on the same matrix,
+   joins/s of both, misses, rows and bytes uploaded, and the shares of
+   the run spent in uploads, in the host replay and in driving the
+   card.  The launch count of `qrow_mins_slots` in the
+   `kernels` line is this run's.  Then a whole run at n = 8192,
+   X = 2048: every record and the final matrix equal the packed
+   engine's;
+7. matdist: k = 128 count matrices of L = 1 Mbp made on the card from a
+   seed (uint16, depth ~40, a tenth of the positions shallow, three
+   samples shorter): -d cos through ops/matdist_torch.pair_table in
+   float64 and float32, every other metric at L = 100 kbp in float64;
+   against the host's cmp_mats on 32 sampled pairs: rows_inc equal for
+   all, sums bit-equal for l1 and linf, the largest relative error
+   printed for the rest; pair-positions/s and the shares of the time
+   spent packing chunks and in the copy calls; whether z's gate on
+   the card equals the host's on every column up to depth 4096;
+8. CLI: python -m ccphylo_tpu_torch dist, tree -m dnj -b, tree -m nj
    and tree -m dnj on make_dataset files, on the card by default,
-   byte-equal to the same commands on the host code.
+   byte-equal to the same commands on the host code; dist on the
+   .mat.gz files: -d l1, z (the card) byte-equal to the host metrics,
+   -d cos (the host, with its stderr line) and -d cos under
+   CCPHYLO_TORCH_DIST=device (the card, cells within 1e-9).
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
-named phases (kernels, main_path, scale, engines, cli, profile) and
+named phases (kernels, main_path, scale, streamed, engines, matdist,
+cli, profile) and
 prints their results without the contract lines: for work on one
 phase.  `profile` runs only when named: 64 joins of each device engine
 at n = 2048 on the host's clock and the next 64 in a torch.profiler
@@ -83,7 +108,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -91,18 +116,20 @@ import torch
 
 from ccphylo_tpu_torch.cli import dist_cmd, tree_cmd
 from ccphylo_tpu_torch.io.qseqs import Name
-from ccphylo_tpu_torch.ops import build, scan, snp, snp_torch
+from ccphylo_tpu_torch.ops import build, matdist_torch, scan, snp, snp_torch
+from ccphylo_tpu_torch.ops.veccmp import cmp_mats, get_veccmp, p_chisqr
 from ccphylo_tpu_torch.tree.exact import build_tree
 from ccphylo_tpu_torch.tree import hclust_engine as he
 from ccphylo_tpu_torch.tree import packed_engine as pe
 from ccphylo_tpu_torch.tree import segmenting
+from ccphylo_tpu_torch.tree import streamed_engine as se
 from ccphylo_tpu_torch.tree import torch_engine as te
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 N_DIST, L_DIST = 2048, 1_000_000
 N_SCALE, L_SCALE = 32768, 100_000
-N_DEPTH = 8192       # the float64 DNJ engine's run at depth
+N_DEPTH = 4096       # the float64 DNJ engine's run at depth
 PROFILE_JOINS = 64   # joins under torch.profiler in the `profile` phase
 TREE_METHODS = ("dnj", "upgma", "ff", "cf", "hnj", "nj", "mn")
 RANDOM_METHODS = ("dnj", "upgma", "cf", "hnj")  # run on the random matrix
@@ -111,6 +138,13 @@ EXP_ROWS, EXP_WORDS = 2048, 2048  # one genome chunk of the main path
 PREFIX_JOINS = 1024  # plain-scan check of the phase-4 run
 CHECKED_JOINS = 256  # joins of a run on which dnj_scan is held to plain
 KBATCH = 128         # candidate rows per scan pass (the engine's default)
+X_SCALE = 8192       # cache rows of the row-cache engine at n = N_SCALE
+STREAM_JOINS = 8192  # its joins held against the packed engine's
+STREAM_MORE = 1024   # its first joins, timed beside the passes scan's
+N_STREAM, X_STREAM = 8192, 2048  # its whole run
+K_MAT, L_MAT, L_MAT_SMALL = 128, 1_000_000, 100_000  # count matrices
+MAT_MIN_DEPTH = 15   # dist's default -E
+MAT_PAIRS = 32       # pairs held against the host's cmp_mats
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_META = {
     "snp_expand_shared": ("ccphylo_tpu_torch/csrc/snp_expand.cu",
@@ -121,6 +155,9 @@ KERNEL_META = {
                   "ccphylo_tpu/ops/scan_pallas.py:49"),
     "dnj_scan": ("ccphylo_tpu_torch/csrc/dnj_scan.cu",
                  "ccphylo_tpu/ops/scan_pallas.py:49"),
+    # qrow_mins reading its rows through the slot map of a row cache
+    "qrow_mins_slots": ("ccphylo_tpu_torch/csrc/qrow_mins.cu",
+                        "ccphylo_tpu/ops/scan_pallas.py:49"),
 }
 
 
@@ -352,6 +389,34 @@ def phase_kernels(dev, g, res):
                       cuda_ms(lambda: scan.qrow_mins_plain(rows, co, words,
                                                            sd2), 10))
     bound["qrow_mins"] = bytes_ms(scan_bytes(rows, 0))
+    # the same kernel on a cache of X rows: row r at cache[slotof[r]]
+    X = X_SCALE
+    resident = torch.randperm(n, device=dev, generator=g)[:X]
+    slotof = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    slotof[resident] = torch.randperm(X, device=dev, generator=g).int()
+    cache = words[:X]  # any words will do: both versions read the same
+    srows = resident[:128].int().contiguous()
+    spad = srows.clone()
+    spad[::3] = 0
+    absent = torch.nonzero(slotof < 0)[1:129, 0].int().contiguous()
+    for r in (srows, spad, absent):
+        err["qrow_mins_slots"] = max(err["qrow_mins_slots"], max_abs_err(
+            scan.qrow_mins(r, co, cache, sd2, slots=slotof),
+            scan.qrow_mins_plain(r, co, cache, sd2, slots=slotof)))
+    # against the slot-free kernel on the rows laid out in full
+    full = torch.zeros_like(words)
+    full[resident.long()] = cache[slotof[resident.long()].long()]
+    err["qrow_mins_slots"] = max(err["qrow_mins_slots"], max_abs_err(
+        scan.qrow_mins(srows, co, cache, sd2, slots=slotof),
+        scan.qrow_mins(srows, co, full, sd2)))
+    del full
+    t["qrow_mins_slots"] = (
+        cuda_ms(lambda: scan.qrow_mins(srows, co, cache, sd2, slots=slotof),
+                50),
+        cuda_ms(lambda: scan.qrow_mins_plain(srows, co, cache, sd2,
+                                             slots=slotof), 10))
+    bound["qrow_mins_slots"] = bytes_ms(scan_bytes(srows, 0) + 4 * 128)
+    del cache, slotof
     words.fill_(0x05050505)  # every cell 5: every column ties
     sd2.zero_()
     rmin, rarg = scan.qrow_mins(rows, 10, words, sd2)
@@ -650,7 +715,302 @@ def phase_scale(dev, g, res):
         np.testing.assert_array_equal(np.asarray(prefix[name])[:k],
                                       ours.cpu().numpy()[:k], err_msg=name)
     log(f"first {k} joins equal the plain-scan run")
+    return D8
 
+
+
+# ---------------------------------------------------------------------
+# phase 6: the row-cache engine on a matrix held on the host
+
+
+def scale_matrix(dev, g):
+    """Phase 4's u8 matrix, for a run of the streamed phase alone."""
+    seqs, shared_inc, _ = outbreak(dev, g, N_SCALE, L_SCALE,
+                                   per_sample=False)
+    pm = pack2(shared_inc[None].to(torch.uint8))[0]
+    return snp_torch.snp_matrix(seqs, pm).clamp(0, 255).to(torch.uint8)
+
+
+def streamed_stretch(eng, start, stop):
+    """Joins [start, stop) of the row-cache engine, with what they cost:
+    the engine's counters and host clocks over the stretch, and the
+    seconds its first STREAM_MORE joins took."""
+    before = dict(eng.times, rows=eng.uploaded_rows, misses=eng.aborts)
+    marks = {}
+
+    def mark(st, done, total):
+        marks[done - start] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    out, t = synced(lambda: eng.run(start=start, stop=stop, hooks=mark))
+    d = {k: eng.times[k] - before[k] for k in eng.times}
+    joins = stop - start
+    # (segments end every segmenting.SEG joins: a multiple of it)
+    d["first_joins_per_s"] = STREAM_MORE / (marks[STREAM_MORE] - t0) \
+        if STREAM_MORE in marks else joins / t
+    d.update(joins=joins, s=t, joins_per_s=joins / t,
+             misses=eng.aborts - before["misses"],
+             rows_uploaded=eng.uploaded_rows - before["rows"])
+    d["bytes_uploaded"] = d["rows_uploaded"] * eng.n
+    # shares of the stretch, by the host's clock: uploads, the replay
+    # of the host matrix, and the rest, driving the card's joins
+    d["upload_share"] = d["upload_s"] / t
+    d["replay_share"] = d["replay_s"] / t
+    d["device_work_share"] = (t - d["upload_s"] - d["replay_s"]) / t
+    log(f"streamed n={eng.n} X={eng.X} joins {start}..{stop}: {t:.2f} s, "
+        f"{d['joins_per_s']:,.1f} joins/s; {d['misses']} misses, "
+        f"{d['rows_uploaded']} rows = {d['bytes_uploaded'] / 2 ** 20:.1f} "
+        f"MiB uploaded; uploads {d['upload_share']:.1%} of the time, host replay "
+        f"{d['replay_share']:.1%} ({1e3 * d['replay_s'] / joins:.3f} ms "
+        f"per join), driving the card {d['device_work_share']:.1%}")
+    return out, d
+
+
+def phase_streamed(dev, g, res, D8=None):
+    out = res["streamed"] = {}
+    if D8 is None:  # run alone: phase 4's model, its own seed
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 2)
+        D8 = scale_matrix(dev, g)
+    n, X, joins = N_SCALE, X_SCALE, STREAM_JOINS
+    Dq = D8.cpu().numpy()
+
+    # the packed engine's first joins on the same matrix, timed
+    prefix, t_packed = synced(lambda: run_prefix(
+        D8.clone().view(torch.int32), n, joins, "fused"))
+    out["packed_joins_per_s"] = joins / t_packed
+    log(f"packed engine n={n}, first {joins} joins: {t_packed:.2f} s, "
+        f"{joins / t_packed:,.1f} joins/s")
+
+    # and with the host-driven passes scan, which the row-cache engine
+    # shares: what is left of the gap is the cache's
+    _, t_passes = synced(lambda: run_prefix(
+        D8.clone().view(torch.int32), n, STREAM_MORE, "passes"))
+    out["packed_passes_first_joins_per_s"] = STREAM_MORE / t_passes
+
+    eng = se.StreamedDNJ(Dq, n, X=X, kbatch=KBATCH, device=dev)
+    build.reset_launches()
+    recs, out["first"] = streamed_stretch(eng, 0, joins)
+    log(f"first {STREAM_MORE} joins at n={n}: packed engine with the "
+        f"passes scan {STREAM_MORE / t_passes:,.1f} joins/s, row-cache "
+        f"engine {out['first']['first_joins_per_s']:,.1f} joins/s")
+    res["streamed_launches"] = dict(build.launches)
+    assert build.launches["qrow_mins_slots"] > 0 \
+        and build.launches["qrow_mins"] == build.launches["dnj_scan"] == 0
+    for name, ours in zip(("I", "J", "DIJ2", "SDI2", "SDJ2"), recs):
+        np.testing.assert_array_equal(ours[:joins],
+                                      np.asarray(prefix[name])[:joins],
+                                      err_msg=name)
+    out["first"]["passes"] = int(eng.stats[0])
+    out["first"]["qrow_mins_slots_launches"] = \
+        build.launches["qrow_mins_slots"]
+    log(f"streamed records of the first {joins} joins equal the packed "
+        f"engine's; {int(eng.stats[0])} passes, "
+        f"{build.launches['qrow_mins_slots']} qrow_mins launches through "
+        f"slots; cache {X * n / 2 ** 20:.0f} MiB of a "
+        f"{n * n / 2 ** 20:.0f} MiB matrix")
+    del eng, Dq
+
+    # a whole run: every record and the final matrix
+    n, X = N_STREAM, X_STREAM
+    D8s = D8[:n, :n].contiguous()
+    words = D8s.clone().view(torch.int32)
+    ref, t_packed = synced(lambda: pe.dnj_joins_packed(words, n,
+                                                       kbatch=KBATCH))
+    Dq = D8s.cpu().numpy()
+    eng = se.StreamedDNJ(Dq, n, X=X, kbatch=KBATCH, device=dev)
+    recs, out["whole"] = streamed_stretch(eng, 0, n - 2)
+    for name, ours, theirs in zip(("I", "J", "DIJ2", "SDI2", "SDJ2"),
+                                  recs, ref):
+        np.testing.assert_array_equal(ours[:n - 2],
+                                      theirs.cpu().numpy()[:n - 2],
+                                      err_msg=name)
+    assert recs[5] == int(ref[5])
+    np.testing.assert_array_equal(
+        Dq, ref[6].view(torch.uint8).cpu().numpy())
+    out["whole"]["packed_joins_per_s"] = (n - 2) / t_packed
+    log(f"whole run n={n} X={X}: records and final matrix equal the "
+        f"packed engine's ({t_packed:.2f} s, {(n - 2) / t_packed:,.1f} "
+        f"joins/s)")
+
+
+# ---------------------------------------------------------------------
+# phase 7: count-matrix distances
+
+
+def count_matrices(dev, g, k, L):
+    """k count matrices (L_i, 6) uint16 with their totals, on the host:
+    one random reference; each sample differs from it at ~0.1% of the
+    positions, has depth Poisson(40) (Poisson(3) at a tenth of the
+    positions), ~1% of a position's reads on another base, a few gap
+    and N reads; the last three samples are shorter."""
+    ref = torch.randint(0, 4, (L,), device=dev, generator=g)
+    pos = torch.arange(L, device=dev)
+    counts, totals = [], []
+    for i in range(k):
+        u = torch.rand((3, L), device=dev, generator=g)
+        shift = torch.randint(1, 4, (2, L), device=dev, generator=g)
+        base = torch.where(u[0] < 0.001, (ref + shift[0]) % 4, ref)
+        lam = torch.where(u[1] < 0.1, 3.0, 40.0)
+        depth = torch.poisson(lam, generator=g)
+        wrong = torch.minimum(torch.poisson(depth * 0.01, generator=g),
+                              depth)
+        c = torch.zeros((L, 6), dtype=torch.int32, device=dev)
+        c[pos, base] = (depth - wrong).int()
+        c[pos, (base + shift[1]) % 4] += wrong.int()
+        c[:, 4] = torch.poisson(torch.full((L,), 0.05, device=dev),
+                                generator=g).int()
+        c[:, 5] = torch.poisson(torch.full((L,), 0.1, device=dev),
+                                generator=g).int()
+        Li = L - (1 + i - (k - 3)) * (L // 200) if i >= k - 3 else L
+        c = c[:Li]
+        counts.append(c.cpu().numpy().astype(np.uint16))
+        totals.append(c.sum(dim=1).cpu().numpy().astype(np.int64))
+    return counts, totals
+
+
+def host_pairs(method, counts, totals, pairs):
+    """cmp_mats of the port's host metrics on `pairs`: (sum, rows_inc),
+    no norm and no length gate."""
+    veccmp = get_veccmp(method, 0.05)
+    return [cmp_mats(counts[i], totals[i], counts[j], totals[j], 0,
+                     MAT_MIN_DEPTH, 1, 0.0, veccmp) for i, j in pairs]
+
+
+def held_to_host(method, S, R, host, pairs):
+    """rows_inc equal on every pair; returns the largest relative error
+    of the sums, whether all are bit-equal, and the positions by which
+    rows_inc differs.  Only nl<n> may differ there: where two channels
+    differ, its base (d0^n + |d1|^n with d0 = -|d1| up to rounding) is
+    rounding noise around 0 in the reference too, and a negative base is
+    excluded."""
+    rel, same, gate = 0.0, True, 0
+    noisy = method.startswith("nl") and method not in matdist_torch.METRICS
+    for (i, j), (dist, rinc) in zip(pairs, host):
+        if dist == -1.0:  # nothing scored: rows_inc 0
+            rinc = 0
+        gate += abs(int(R[i, j]) - rinc)
+        assert noisy or int(R[i, j]) == rinc, (method, i, j, int(R[i, j]),
+                                               rinc)
+        if dist == -1.0:
+            continue
+        same &= float(S[i, j]) == dist
+        rel = max(rel, abs(float(S[i, j]) - dist) / max(abs(dist), 1e-300))
+    return rel, same, gate
+
+
+def z_gate_on_card(dev, tmax=4096):
+    """Whether z's gate p_chisqr(q) <= alpha on the card equals the
+    host's for every column of total t <= tmax and majority count
+    mx <= t, at three alphas."""
+    t = np.arange(1, tmax + 1, dtype=np.float64)
+    equal = True
+    for t0 in range(0, tmax, 512):
+        T, M = np.meshgrid(t[t0:t0 + 512], np.arange(0, tmax + 1.0),
+                           indexing="ij")
+        keep = M <= T
+        q = (T[keep] - 2 * M[keep]) ** 2 / T[keep]
+        ph = p_chisqr(q)
+        pc = matdist_torch._p_chisqr(torch.from_numpy(q).to(dev)) \
+            .cpu().numpy()
+        for alpha in (0.05, 0.01, 0.001):
+            equal &= bool(((pc <= alpha) == (ph <= alpha)).all())
+    return equal
+
+
+def phase_matdist(dev, res):
+    out = res["matdist"] = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    k, L = K_MAT, L_MAT
+    (counts, totals), t = synced(lambda: count_matrices(dev, g, k, L))
+    lens = [len(c) for c in counts]
+    log(f"count matrices k={k} L={L}: made in {t:.1f} s, "
+        f"{sum(c.nbytes for c in counts) / 2 ** 30:.2f} GiB on the host, "
+        f"lengths {min(lens)}..{max(lens)}")
+    rng = np.random.RandomState(SEED % 2 ** 31)
+    # sample 1 of a pair must not be the shorter one; two pairs have a
+    # shorter sample 2
+    pairs = [(k - 4, k - 1), (k - 5, k - 2)]
+    while len(pairs) < MAT_PAIRS:
+        i, j = sorted(rng.randint(0, k - 3, 2).tolist(), reverse=True)
+        if i != j and (i, j) not in pairs:
+            pairs.append((i, j))
+    npairs = k * (k - 1) // 2
+
+    def table(method, cs, ts, dtype):
+        spec = matdist_torch.resolve_metric(method, 0.05)
+        (S, R), t = synced(lambda: matdist_torch.pair_table(
+            spec, cs, ts, MAT_MIN_DEPTH, device=dev, dtype=dtype,
+            lower=True))
+        last = matdist_torch.pair_table.last
+        share = (f"packing chunks on the host "
+                 f"{last['pack_s'] / last['s']:.1%} of it, the copy calls "
+                 f"(they wait for the card's last chunk) "
+                 f"{last['copy_s'] / last['s']:.1%}")
+        return S, R, t, share, last
+
+    # pairs (i, j) with i > j read the strict lower triangle; put the
+    # shorter samples first so that they are sample 2 there
+    order = list(range(k - 3, k)) + list(range(k - 3))
+    pos_of = {s: a for a, s in enumerate(order)}
+    counts_o = [counts[s] for s in order]
+    totals_o = [totals[s] for s in order]
+    pairs_o = [(pos_of[i], pos_of[j]) for i, j in pairs]
+    assert all(i > j and len(counts_o[j]) <= len(counts_o[i])
+               for i, j in pairs_o)
+
+    host = host_pairs("cos", counts_o, totals_o, pairs_o)
+    for name, dtype, tol in (("float64", torch.float64, 1e-10),
+                             ("float32", torch.float32, 2e-5)):
+        S, R, t, share, last = table("cos", counts_o, totals_o, dtype)
+        rel, same, _ = held_to_host("cos", S, R, host, pairs_o)
+        assert rel <= tol, (name, rel)
+        out["cos_" + name] = {
+            "s": t, "pair_positions_per_s": npairs * L / t,
+            "pack_share": last["pack_s"] / last["s"],
+            "copy_call_share": last["copy_s"] / last["s"],
+            "max_rel_err": rel,
+            "block_rows": last["block_rows"], "chunks": last["chunks"]}
+        log(f"matdist -d cos {name} k={k} L={L}: {t:.2f} s, "
+            f"{npairs * L / t:,.0f} pair-positions/s, {share} "
+            f"({last['chunks']} chunks, "
+            f"{last['block_rows']} sample rows a block); rows_inc equal "
+            f"on {len(pairs)} pairs, largest relative error of a sum "
+            f"against the host's {rel:.3e}")
+
+    Ls = L_MAT_SMALL
+    cs = [c[:Ls - (L - len(c)) // 10] for c in counts_o]
+    ts = [t[:len(c)] for t, c in zip(totals_o, cs)]
+    methods = [m for m in sorted(matdist_torch.METRICS) if m != "cos"] \
+        + ["z", "l3", "nl3", "l4"]
+    exact = []
+    for method in methods:
+        S, R, t, share, last = table(method, cs, ts, torch.float64)
+        rel, same, gate = held_to_host(method, S, R,
+                                       host_pairs(method, cs, ts, pairs_o),
+                                       pairs_o)
+        if method in matdist_torch.EXACT_METRICS:
+            assert same, f"-d {method}: sums differ from the host's"
+        # a position more or less of nl<n> adds the n-th root of noise
+        assert rel <= (1e-9 if gate == 0 else 1e-3), (method, rel)
+        if same:
+            exact.append(method)
+        out[method] = {"s": t, "pair_positions_per_s": npairs * Ls / t,
+                       "pack_share": last["pack_s"] / last["s"],
+                       "copy_call_share": last["copy_s"] / last["s"],
+                       "max_rel_err": rel,
+                       "bit_equal": same, "rows_inc_differs_by": gate}
+        log(f"matdist -d {method} float64 k={k} L={Ls}: {t:.2f} s, "
+            f"{npairs * Ls / t:,.0f} pair-positions/s, {share}; rows_inc "
+            f"{'equal' if gate == 0 else f'differs by {gate} positions'}, "
+            f"largest relative error {rel:.3e}"
+            f"{', sums bit-equal to the host' if same else ''}")
+    out["bit_equal_on_card"] = exact
+    out["z_gate_equal_to_depth_4096"] = z_gate_on_card(dev)
+    log(f"bit-equal to the host on {len(pairs)} pairs on the card: {exact}; "
+        f"z's gate equals the host's on every column up to depth 4096: "
+        f"{out['z_gate_equal_to_depth_4096']}")
 
 # ---------------------------------------------------------------------
 # phase 5: the float and quantized device engines of every tree method
@@ -771,12 +1131,14 @@ def engines_on_card(dev, g, res, flat, pool):
     joins = n - 2
     runs = {}  # key -> (flat, method, dtype, Newick, seconds, engine)
 
-    # the matrix of the run at depth, first: its host run takes minutes,
-    # so one worker starts on it now and works beside the card's runs
-    # (one busy core of the host's); all other host runs wait for them
+    # the host runs that take a minute or more start first and work
+    # beside the card's runs (three busy cores of the host's): the run
+    # at depth, and nj and mn on the main path's matrix; all other host
+    # runs wait for the card's timed runs
     nd = N_DEPTH
     dflat = snp_flat(dev, g, nd, L_SCALE)
     f_depth = pool.submit(host_tree, dflat, nd, "dnj")
+    early = {m: pool.submit(host_tree, flat, n, m, "d") for m in ("nj", "mn")}
 
     # every method on the default route; then dnj on u16 cells (-s, the
     # default route) and on u8 cells (device64 -b)
@@ -841,7 +1203,8 @@ def engines_on_card(dev, g, res, flat, pool):
     # the host exact engine on the same matrices, now that the card's
     # runs are timed (nj and mn take it about a minute each); every
     # Newick of a default route must equal its host twin's bytes
-    futures = {key: pool.submit(host_tree, fl, n, method, dtype)
+    futures = {key: early.get(key) or pool.submit(host_tree, fl, n, method,
+                                                  dtype)
                for key, (fl, method, dtype, *_) in runs.items()}
     mflat = random_flat(dev, g, n, 0, 25, drop=0.12)
     f_miss = {m: pool.submit(host_tree, mflat, n, m)
@@ -971,7 +1334,7 @@ def phase_profile(dev, res):
 
 
 # ---------------------------------------------------------------------
-# phase 6: the CLI on the card against the CLI on the host code
+# phase 8: the CLI on the card against the CLI on the host code
 
 
 def phase_cli(res):
@@ -990,34 +1353,73 @@ def phase_cli(res):
                            + args, env=env, cwd=cwd, capture_output=True,
                            timeout=300)
         assert p.returncode == 0, p.stderr.decode(errors="replace")
-        return p.stdout
+        return p.stdout, p.stderr
 
+    def run_all(jobs, cwd):
+        """{key: (args, env)} -> {key: (stdout, stderr)}; the processes
+        run side by side (each takes seconds to import and reach the
+        card)."""
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futs = {k: pool.submit(run, a, e, cwd)
+                    for k, (a, e) in jobs.items()}
+            return {k: f.result() for k, f in futs.items()}
+
+    def cells(out):
+        return [float(x) for ln in out.split(b"\n")[1:] if ln
+                for x in ln.split(b"\t")[1:]]
+
+    dev_env = dict(base, CCPHYLO_TORCH_DIST="device")
     with tempfile.TemporaryDirectory() as d:
         make_dataset(Path(d), n_samples=24, length=3000)
         fsas = sorted(f for f in os.listdir(d) if f.endswith(".fsa.gz"))
-        for flags in (["-f", "17"], ["-f", "19"]):
-            args = ["dist", "-r", "tpl1"] + flags + ["-i"] + fsas
-            ours = run(args, base, d)
-            assert ours == run(args, host_env, d), flags
-            assert ours.count(b"\n") == 25
+        mats = sorted(f for f in os.listdir(d) if f.endswith(".mat.gz"))
+        jobs = {}
+        for flag in ("17", "19"):
+            args = ["dist", "-r", "tpl1", "-f", flag, "-i"] + fsas
+            jobs["-f " + flag] = (args, base)
+            jobs["-f " + flag + " host"] = (args, host_env)
+        # dist on .mat.gz: -d l1 and -d z on the card by default, -d cos
+        # on the host with its note, and on the card when asked
+        for method in ("l1", "z", "cos"):
+            args = ["dist", "-r", "tpl1", "-d", method, "-i"] + mats
+            jobs["-d " + method] = (args, base)
+            jobs["-d " + method + " host"] = (args, host_env)
+        jobs["-d cos device"] = (jobs["-d cos"][0], dev_env)
+        out = run_all(jobs, d)
+        for key in ("-f 17", "-f 19", "-d l1", "-d z", "-d cos"):
+            assert out[key][0] == out[key + " host"][0], key
+            assert out[key][0].count(b"\n") == 25
+            noted = out[key][1].count(b"# ccphylo_tpu_torch")
+            assert noted == (key == "-d cos"), (key, out[key][1])
+        assert b"CCPHYLO_TORCH_DIST=device" in out["-d cos"][1]
+        card, host = cells(out["-d cos device"][0]), cells(out["-d cos"][0])
+        worst = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(card, host))
+        assert len(card) == len(host) == 276 and worst <= 1e-9
+
         phy = os.path.join(d, "d.phy")
         with open(phy, "wb") as fh:
-            fh.write(ours)
-        targs = ["tree", "-m", "dnj", "-b", "-i", phy]
-        nwk = run(targs, base, d)
-        assert nwk == run(targs, host_env, d)
-        assert nwk.endswith(b";\n")
-        # the float64 device engines: an integer matrix, no variable set
-        for method in ("nj", "dnj"):
-            targs = ["tree", "-m", method, "-i", phy]
-            nwk = run(targs, base, d)
-            assert nwk == run(targs, host_env, d), method
-            assert nwk.endswith(b";\n")
+            fh.write(out["-f 19"][0])
+        # -m dnj -b: the packed engine; -m nj, -m dnj: the float64 device
+        # engines (an integer matrix, no variable set)
+        jobs = {}
+        for targs in (["-m", "dnj", "-b"], ["-m", "nj"], ["-m", "dnj"]):
+            args = ["tree"] + targs + ["-i", phy]
+            jobs[" ".join(targs)] = (args, base)
+            jobs[" ".join(targs) + " host"] = (args, host_env)
+        out = run_all(jobs, d)
+        for key in ("-m dnj -b", "-m nj", "-m dnj"):
+            assert out[key][0] == out[key + " host"][0], key
+            assert out[key][0].endswith(b";\n")
+    res["cli_mat_cos_device_max_rel"] = worst
     log("CLI dist -f 17 / -f 19, tree -m dnj -b, tree -m nj and tree -m "
-        "dnj on the card equal the host code's bytes")
+        "dnj on the card equal the host code's bytes; dist on .mat.gz: "
+        "-d l1 and -d z on the card equal the host metrics' bytes, -d cos "
+        "runs on the host with its note, and on the card under "
+        f"CCPHYLO_TORCH_DIST=device within {worst:.1e} of the host's cells")
 
 
-PHASES = ("kernels", "main_path", "scale", "engines", "cli", "profile")
+PHASES = ("kernels", "main_path", "scale", "streamed", "engines", "matdist",
+          "cli", "profile")
 
 
 def main() -> int:
@@ -1039,15 +1441,23 @@ def main() -> int:
         return 2
     res["build_s"] = build.build_all()
     log(f"built kernels in {res['build_s']:.1f} s")
-    shared = {}  # the main path's SNP matrix, for the engines phase
+    # the main path's SNP matrix, for the engines phase, and phase 4's
+    # u8 matrix, for the streamed phase
+    shared = {}
     for name, phase in zip(PHASES, (
             lambda: phase_kernels(dev, g, res),
             lambda: shared.update(flat=phase_main_path(dev, g, res)),
-            lambda: phase_scale(dev, g, res),
+            lambda: shared.update(D8=phase_scale(dev, g, res)),
+            lambda: phase_streamed(dev, g, res, shared.pop("D8", None)),
             lambda: phase_engines(dev, g, res, shared.get("flat")),
+            lambda: phase_matdist(dev, res),
             lambda: phase_cli(res), lambda: phase_profile(dev, res))):
         if name in only or (not only and name != "profile"):
+            t_phase = time.perf_counter()
             phase()
+            res.setdefault("phase_s", {})[name] = \
+                time.perf_counter() - t_phase
+            log(f"phase {name}: {res['phase_s'][name]:.1f} s")
     res["total_s"] = time.perf_counter() - t_start
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1062,9 +1472,10 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         ms, plain = res["kernel_ms"][name]
+        counts = res["streamed_launches" if name == "qrow_mins_slots"
+                     else "main_path_launches"]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": res["main_path_launches"][name],
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": res["max_abs_err"][name],
                         "ms": ms, "plain_ms": plain,
                         "bound_ms": res["bound_ms"][name],

@@ -86,15 +86,182 @@ def test_dist_host_route_matches_reference(kma_dir, flags):
     assert same.stdout == ref.stdout
 
 
-def test_dist_mat_input_runs_host_metrics(kma_dir):
-    """.mat input runs the host metrics whatever CCPHYLO_TORCH_DIST is."""
-    mats = sorted(os.path.basename(p)
-                  for p in glob.glob(str(kma_dir / "*.mat.gz")))
-    args = ["dist", "-r", "tpl1", "-d", "cos", "-i"] + mats
+def _mats(d):
+    return sorted(os.path.basename(p) for p in glob.glob(str(d / "*.mat.gz")))
+
+
+def _cells(out):
+    """The cells of a Phylip matrix as floats, and its size line."""
+    lines = out.split(b"\n")
+    return [float(x) for ln in lines[1:] if ln
+            for x in ln.split(b"\t")[1:]], lines[0]
+
+
+def _notes(stderr):
+    return [ln for ln in stderr.splitlines()
+            if ln.startswith(b"# ccphylo_tpu_torch")]
+
+
+@pytest.mark.parametrize("extra", [["-d", "l1"], ["-d", "linf"], ["-d", "z"],
+                                   ["-d", "l1", "-W", "1000"]])
+def test_dist_mat_input_runs_host_metrics(kma_dir, tmp_path, extra):
+    """.mat input, -d l1 / linf / z, no CCPHYLO_TORCH_DIST: the metric table
+    of ops/matdist_torch.py on the torch device (here the CPU) writes the
+    bytes of the host metrics and of the reference, stderr and the number
+    matrix included."""
+    args = ["dist", "-r", "tpl1", "-i"] + _mats(kma_dir) + extra
+    outs = []
+    for pkg, env in (("ccphylo_tpu", {}),
+                     ("ccphylo_tpu_torch", {"CCPHYLO_TORCH_DIST": "host",
+                                            "CCPHYLO_TORCH_DEVICE": "cuda"}),
+                     ("ccphylo_tpu_torch", {})):
+        num = tmp_path / f"n{len(outs)}.num"
+        res = _run(pkg, args + ["-n", str(num)], kma_dir, env)
+        outs.append((res.stdout, res.stderr, num.read_bytes()))
+    assert outs[0] == outs[1] == outs[2]
+    assert outs[2][0].count(b"\n") == 7 and not _notes(outs[2][1])
+
+
+@pytest.mark.parametrize("method", ["cos", "bc", "chi2"])
+def test_dist_mat_float_metric_default_is_the_host(kma_dir, method):
+    """A metric whose float sums depend on their order stays on the host
+    metrics when no variable is set: the reference's bytes, no torch
+    device needed, and one stderr line that names the variable which
+    forces the card."""
+    args = ["dist", "-r", "tpl1", "-d", method, "-i"] + _mats(kma_dir)
     ref = _run("ccphylo_tpu", args, kma_dir)
+    ours = _run("ccphylo_tpu_torch", args, kma_dir,
+                {"CCPHYLO_TORCH_DEVICE": "cuda"})  # never reached
+    assert ours.stdout == ref.stdout and ours.stdout.count(b"\n") == 7
+    notes = _notes(ours.stderr)
+    assert len(notes) == 1 and b"CCPHYLO_TORCH_DIST=device" in notes[0]
+    assert b"-d " + method.encode() in notes[0]
+    rest = [ln for ln in ours.stderr.splitlines() if ln not in notes]
+    assert rest == ref.stderr.splitlines()
+    quiet = _run("ccphylo_tpu_torch", args, kma_dir,
+                 {"CCPHYLO_TORCH_DIST": "host", "CCPHYLO_TORCH_DEVICE": ""})
+    assert quiet.stdout == ref.stdout and quiet.stderr == ref.stderr
+
+
+@pytest.mark.parametrize("method", ["cos", "chi2", "nc", "z", "l3", "l1"])
+def test_dist_mat_device_route_matches_jax_device(kma_dir, tmp_path, method):
+    """CCPHYLO_TORCH_DIST=device: every metric the table knows runs on
+    the torch device in float64.  Cells within the float32 tolerance of
+    the reference under CCPHYLO_TPU_DIST=device (2e-5, its own test's)
+    and within 1e-9 of the host metrics (float64 sums in another order,
+    printed with 9 digits); the number matrix (rows_inc) is exact."""
+    args = ["dist", "-r", "tpl1", "-d", method, "-i"] + _mats(kma_dir)
+    nums = [tmp_path / f"{k}.num" for k in "jho"]
+    jax_out = _run("ccphylo_tpu", args + ["-n", str(nums[0])], kma_dir,
+                   {"CCPHYLO_TPU_DIST": "device"}).stdout
+    host = _run("ccphylo_tpu_torch", args + ["-n", str(nums[1])], kma_dir,
+                {"CCPHYLO_TORCH_DIST": "host"}).stdout
+    res = _run("ccphylo_tpu_torch", args + ["-n", str(nums[2])], kma_dir,
+               {"CCPHYLO_TORCH_DIST": "device"})
+    assert not _notes(res.stderr)
+    (j, jsize), (h, hsize), (o, osize) = (_cells(x) for x in
+                                          (jax_out, host, res.stdout))
+    assert jsize == hsize == osize and len(o) == len(j) == len(h) == 15
+    for a, b, c in zip(o, j, h):
+        assert abs(a - b) <= 2e-5 * max(abs(b), 1.0), (a, b)
+        assert abs(a - c) <= 1e-9 * max(abs(c), 1.0), (a, c)
+    assert nums[2].read_bytes() == nums[1].read_bytes() \
+        == nums[0].read_bytes()
+
+
+def test_dist_mat_union_on_the_torch_path(kma_dir):
+    """Union-stream mode: -d l1 by default and -d z under
+    CCPHYLO_TORCH_DIST=device (its values are all 0, so its bytes are the
+    host's too) go through the metric table; -d cos by default is the
+    host with one note for the whole run."""
+    u = b"6\ts00\ts01\ts02\ts03\ts04\ts05\n"
+    u += b"tpl1\t6\t0\t1\t2\t3\t4\t5\n"
+    u += b"tpl2\t4\t0\t2\t3\t5\n"
+    (kma_dir / "t.union").write_bytes(u)
+    for method, mode in (("l1", None), ("z", "device")):
+        args = ["dist", "-i", "t.union", "-d", method]
+        ref = _run("ccphylo_tpu", args, kma_dir)
+        ours = _run("ccphylo_tpu_torch", args, kma_dir,
+                    {"CCPHYLO_TORCH_DIST": mode})
+        assert ours.stdout == ref.stdout and ours.stderr == ref.stderr
+        assert ours.stdout.count(b"\n") == 7 + 5
+    args = ["dist", "-i", "t.union", "-d", "cos"]
     ours = _run("ccphylo_tpu_torch", args, kma_dir)
-    assert ours.stdout == ref.stdout and ours.stderr == ref.stderr
-    assert ours.stdout.count(b"\n") == 7
+    assert ours.stdout == _run("ccphylo_tpu", args, kma_dir).stdout
+    assert len(_notes(ours.stderr)) == 1
+
+
+def _write_mat(path, deep, template="tpl1", length=200, inserts=0):
+    """A .mat file of `length` reference rows, 30 reads where `deep`
+    holds and 2 elsewhere, behind `inserts` deep insertion rows."""
+    rows = [b"#" + template.encode()]
+    rows += [b"-\t0\t0\t0\t0\t0\t30"] * inserts
+    for p in range(length):
+        d = 30 if deep(p) else 2
+        rows.append(b"ACGT"[p % 4:p % 4 + 1] + b"\t%d\t%d\t0\t0\t0\t0"
+                    % ((d, 0) if p % 3 else (d - 1, 1)))
+    path.write_bytes(b"\n".join(rows) + b"\n\n")
+
+
+@pytest.mark.parametrize("case", ["messages", "exit"])
+def test_dist_mat_card_route_keeps_the_order_of_stderr(tmp_path, case):
+    """Files that are left out while loading (template missing, too few
+    deep rows) between pairs without enough overlap: the default -d l1
+    route, which scores its pairs after all files are loaded, writes the
+    host route's stderr line for line, and its exit at a sample whose
+    stripped rows fall short comes with the same lines before it."""
+    def everywhere(p):
+        return True
+    _write_mat(tmp_path / "a.mat", everywhere)
+    _write_mat(tmp_path / "b.mat", lambda p: p < 100)
+    _write_mat(tmp_path / "c.mat", lambda p: p >= 100)
+    _write_mat(tmp_path / "m.mat", everywhere, template="other")
+    _write_mat(tmp_path / "f.mat", lambda p: p < 50)
+    # passes as loaded (170 deep rows of 300), fails once the insertion
+    # rows are stripped (70 of 200)
+    _write_mat(tmp_path / "x.mat", lambda p: p < 70, inserts=100)
+    files = {"messages": ["a", "b", "c", "m", "a", "f", "c"],
+             "exit": ["a", "x", "b", "m", "c"]}[case]
+    args = ["dist", "-r", "tpl1", "-d", "l1", "-C", "40", "-L", "50", "-i"] \
+        + [f + ".mat" for f in files]
+    outs = []
+    for pkg, env in (("ccphylo_tpu", {}),
+                     ("ccphylo_tpu_torch", {"CCPHYLO_TORCH_DIST": "host"}),
+                     ("ccphylo_tpu_torch", {})):
+        num = tmp_path / f"n{len(outs)}.num"
+        res = _run(pkg, args + ["-n", str(num)], tmp_path, env, check=False)
+        outs.append((res.returncode, res.stdout, res.stderr,
+                     num.read_bytes() if num.exists() else None))
+    assert outs[0] == outs[1] == outs[2]
+    err = outs[2][2].decode()
+    if case == "messages":
+        assert outs[2][0] == 0 and outs[2][1].count(b"\n") == 6
+        marks = [err.index("samples:\tc.mat\tb.mat"),
+                 err.index("is not included in:\tm.mat"),
+                 err.index("inclusion:\tf.mat"),
+                 err.rindex("samples:\tc.mat\tb.mat")]
+        assert marks == sorted(marks) and marks[0] < marks[3]
+    else:
+        assert outs[2][0] == 1 and outs[2][1] == b""
+        assert err.rstrip().endswith("inclusion:\tx.mat")
+        assert "m.mat" not in err
+
+
+def test_dist_mat_card_route_without_card_raises(kma_dir):
+    """-d l1 on .mat input is a card route: with no variable set and no
+    card it raises, it never runs the host metrics quietly; so does any
+    metric under CCPHYLO_TORCH_DIST=device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    mats = _mats(kma_dir)
+    for method, mode in (("l1", None), ("linf", None), ("z", None),
+                         ("cos", "device")):
+        res = _run("ccphylo_tpu_torch",
+                   ["dist", "-r", "tpl1", "-d", method, "-i"] + mats, kma_dir,
+                   {"CCPHYLO_TORCH_DEVICE": None, "CCPHYLO_TORCH_DIST": mode},
+                   check=False)
+        assert res.returncode != 0 and res.stdout == b"", method
+        assert b"torch.cuda.is_available() is False" in res.stderr
 
 
 def test_dist_tile_checkpoint_stays_on_the_host(kma_dir, tmp_path):
@@ -434,8 +601,8 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     files = sorted((REPO / "ccphylo_tpu_torch").rglob("*.py")) \
         + [REPO / "chip_smoke.py"]
     assert len(files) > 27
-    assert {"torch_engine.py", "hclust_engine.py"} \
-        <= {f.name for f in files}
+    assert {"torch_engine.py", "hclust_engine.py", "matdist_torch.py",
+            "streamed_engine.py"} <= {f.name for f in files}
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "ccphylo_tpu"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
