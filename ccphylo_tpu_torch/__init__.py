@@ -15,7 +15,13 @@ Ported so far, the main path:
 - `tree -m dnj -b` on the exact-int32 packed u8 engine
   (tree/packed_engine.py; CUDA batch-scan kernels csrc/dnj_scan.cu and
   csrc/qrow_mins.cu), every other method and dtype on the host exact
-  engine (tree/exact.py).
+  engine (tree/exact.py);
+and beside it the float and quantized device engines of every tree
+method (tree/torch_engine.py, tree/hclust_engine.py), `dist` on `.mat`
+count matrices (ops/matdist_torch.py), the row-cache DNJ engine
+(tree/streamed_engine.py) and the row-block-sharded engines over
+torch.distributed (parallel/: DNJ, NJ/UPGMA, and
+ops/snp_torch.sharded_snp_matrix).
 
 Both run on the card unless the caller asks for the CPU
 (CCPHYLO_TORCH_DEVICE=cpu for the plain PyTorch versions,

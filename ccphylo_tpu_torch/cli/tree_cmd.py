@@ -196,25 +196,25 @@ def main_tree(argv: list[str]) -> int:
                      precision, dtype, bytescale, threads)
 
 
-_ENGINES = ("", "packed", "exact", "device", "device64")
+_ENGINES = ("", "packed", "packed64", "exact", "device", "device64",
+            "sharded")
 _HCLUST = ("upgma", "ff", "cf", "hnj", "nj", "mn")
+_SHARDED = ("dnj", "nj", "upgma")
 
 
 def _engine() -> str:
     """CCPHYLO_TORCH_ENGINE: unset (the card wherever its engines are
     exact), ``device`` / ``device64`` (the reference's routing of the
     float32 / float64 device engines), ``packed`` (only -m dnj -b leaves
-    the host) or ``exact`` (the host engine)."""
+    the host; ``packed64`` is its alias, as in the reference),
+    ``sharded`` (the row-block-sharded engines of parallel/ over the
+    process group of parallel/multihost.py) or ``exact`` (the host
+    engine)."""
     eng = os.environ.get("CCPHYLO_TORCH_ENGINE", "")
     if eng in _ENGINES:
-        return eng
-    if eng == "sharded":
-        raise ArgError("CCPHYLO_TORCH_ENGINE=sharded is not ported yet: "
-                       "ROADMAP.md item A10 (parallel/ on "
-                       "torch.distributed); the engines are device, "
-                       "device64, packed and exact.")
+        return "packed" if eng == "packed64" else eng
     raise ArgError(f'Invalid value of CCPHYLO_TORCH_ENGINE: "{eng}" '
-                   "(device, device64, packed or exact).")
+                   "(device, device64, packed, sharded or exact).")
 
 
 def _is_integer(flat) -> bool:
@@ -245,17 +245,30 @@ def _route(flat, method, dtype, bytescale):
     the 53 bits of a float64 every sum is exact and its order cannot
     matter.  A join can add one fractional bit to a lineage, so the
     bound depends on the tree's depth and the dispatcher cannot test it
-    on the matrix; chip_smoke.py reads the bits in use at n = 2048 on
-    the card and fails if a sum is inexact.  With missing cells the
+    on the matrix: the engines track it as they run and `_dispatch_build`
+    hands a run that leaves it to the host engine.  With missing cells the
     one-sided updates store D_ik - L_i, L_i a quotient: not dyadic, and
     a parallel sum on the card may differ from the host's left-to-right
     sum in the last bit.  Those matrices, and everything else, run the
     host engine; a double-precision matrix with a note.  ``device`` and
-    ``device64`` route as the reference does.
+    ``device64`` route as the reference does, and so does ``sharded``
+    (float32 engines of parallel/; its host stand-ins come with a note).
     """
     eng = _engine()
     complete = not (np.asarray(flat) < 0).any()
     host = ("exact", "", "", "")
+    if eng == "sharded":
+        # the reference's routing, in float32 as there; its host
+        # stand-ins run quietly, the port's say so
+        if method in _SHARDED and dtype == "d" \
+                and (complete or method == "dnj"):
+            return ("sharded", method, "float32", "")
+        why = "missing cells" if method in _SHARDED and dtype == "d" \
+            else f"-m {method}" + ("" if dtype == "d" else f" -{dtype}")
+        return host[:3] + (
+            f"# ccphylo_tpu_torch: {why}: CCPHYLO_TORCH_ENGINE=sharded "
+            "runs -m dnj, and -m nj / upgma on complete matrices, in "
+            "double precision only; using the host engine.\n",)
     if eng in ("", "packed") and method == "dnj" and dtype == "b" \
             and complete:
         return ("packed", "", "", "")
@@ -300,6 +313,8 @@ def _engine_name(engine, store, prec) -> str:
     ``hclust/float64``, ..."""
     if not prec:
         return engine
+    if engine == "sharded":
+        return f"sharded/{store}"
     head = store or ("hclust" if engine == "hclust" else "")
     return f"{head}/{prec}" if head else prec
 
@@ -307,10 +322,38 @@ def _engine_name(engine, store, prec) -> str:
 def _dispatch_build(flat, n, names, method, flag, precision, dtype,
                     bytescale, threads=1):
     """Build the tree on the engine `_route` chooses; its name (see
-    `_engine_name`) is left in `_dispatch_build.last_engine`."""
+    `_engine_name`) is left in `_dispatch_build.last_engine`.
+
+    On the default route the float64 engines track their exact range
+    (torch_engine.track_sums): a run whose row sums leave it is handed
+    to the host exact engine, which builds the tree from the loaded
+    matrix, with one stderr line."""
     engine, store, prec, note = _route(flat, method, dtype, bytescale)
     sys.stderr.write(note)
     _dispatch_build.last_engine = _engine_name(engine, store, prec)
+    if engine in ("exact", "packed", "sharded"):
+        return _build(engine, store, prec, flat, n, names, method, flag,
+                      precision, dtype, bytescale, threads)
+    from ..tree.torch_engine import InexactSums
+    try:
+        return _build(engine, store, prec, flat, n, names, method, flag,
+                      precision, dtype, bytescale, threads,
+                      exact_sums=_engine() == "")
+    except InexactSums as e:
+        sys.stderr.write(
+            f"# ccphylo_tpu_torch: the {_dispatch_build.last_engine} device "
+            f"engine's row sums left float64's exact range before join "
+            f"{e.join}; using the host engine (CCPHYLO_TORCH_ENGINE="
+            "device64 keeps the card).\n")
+        _dispatch_build.last_engine = "exact"
+        return build_tree(flat, n, names, method, flag, precision, dtype,
+                          bytescale, threads)
+
+
+def _build(engine, store, prec, flat, n, names, method, flag, precision,
+           dtype, bytescale, threads, exact_sums=False):
+    """The tree on `engine` (see `_route`); exact_sums: the float and
+    hclust engines track their exact range and raise InexactSums."""
     if engine == "exact":
         return build_tree(flat, n, names, method, flag, precision, dtype,
                           bytescale, threads)
@@ -320,21 +363,31 @@ def _dispatch_build(flat, n, names, method, flag, precision, dtype,
                                  bytescale=bytescale)
     import torch
     tdt = torch.float64 if prec == "float64" else torch.float32
+    if engine == "sharded":
+        if method == "dnj":
+            from ..parallel.sharded_dnj import build_tree_sharded_dnj
+            return build_tree_sharded_dnj(flat, n, names, flag, precision,
+                                          dtype=tdt)
+        from ..parallel.sharded_nj import build_tree_sharded
+        from ..tree.torch_engine import square_matrix
+        return build_tree_sharded(square_matrix(flat, n, 0.0), n, names,
+                                  method, flag, precision, dtype=tdt)
     if engine == "hclust":
         from ..tree.hclust_engine import build_tree_hclust
         return build_tree_hclust(flat, n, names, method=method, flag=flag,
-                                 precision=precision, dtype=tdt)
+                                 precision=precision, dtype=tdt,
+                                 exact_sums=exact_sums)
     if store:
         from ..tree.torch_engine import build_tree_q
         return build_tree_q(flat, n, names, flag, precision,
                             bytescale=bytescale, store=store,
-                            compute_dtype=tdt)
+                            compute_dtype=tdt, exact_sums=exact_sums)
     from ..tree.torch_engine import build_tree_float
     # the batch scan is trajectory-exact (ties included); float64 state
     # makes it bit-exact against the reference wherever the C's own
     # float64 sums are reproduced
     return build_tree_float(flat, n, names, flag, precision, dtype=tdt,
-                            scan="batch")
+                            scan="batch", exact_sums=exact_sums)
 
 
 def form_tree(inputfile, outputfile, flag, sep, quotes, method, precision,

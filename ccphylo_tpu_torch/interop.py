@@ -5,7 +5,8 @@ with their include masks, and the packed u8 `words` buffer with the
 packed engine's state, and the float, quantized and hclust engines'
 state.  `state_from_jax` turns the JAX package's numpy
 forms of each into the port's tensors (u32 data as int32 bit patterns);
-`streamed_state_from_jax` does the same for the row-cache engine.
+`streamed_state_from_jax` does the same for the row-cache engine, and
+`sharded_state_from_jax` for one rank of the sharded DNJ engine.
 """
 
 from __future__ import annotations
@@ -87,3 +88,37 @@ def streamed_state_from_jax(state, device="cpu"):
     st["stats"] = torch.from_numpy(stats).to(device)
     assert set(st) == set(_STREAMED_KEYS)
     return st, int(d["t"])
+
+
+# the JAX sharded DNJ engine's state tuple (parallel/sharded_dnj.py)
+_JAX_SHARDED_KEYS = ("D", "sD", "N", "Q", "P", "seed", "I", "J", "LI", "LJ")
+
+
+def sharded_state_from_jax(state, rank: int, world: int, device="cpu"):
+    """The JAX sharded DNJ engine's 10-tuple state after some joins
+    (its `seg_fn`'s, gathered to numpy arrays: the (npad, npad) matrix,
+    the (npad,) vectors sD, N, Q, P, the seed and the join records) ->
+    this rank's state of parallel/sharded_dnj.py: its block of rows
+    rank*R .. (rank+1)*R of the matrix and of Q, P, R = npad / world,
+    and the whole sD and N (which every rank keeps), ready for
+    `sharded_dnj.dnj_segment(state, t, n - 2, n)` from the joins done,
+    t, on.  Records are copied; the matrix is copied to `device`."""
+    d = dict(zip(_JAX_SHARDED_KEYS, (np.asarray(x) for x in state)))
+    npad = d["D"].shape[0]
+    if npad % world:
+        raise ValueError(f"{npad} rows do not split over {world} ranks")
+    R = npad // world
+    rows = slice(rank * R, (rank + 1) * R)
+    st = {"Dl": torch.from_numpy(np.array(d["D"][rows])).to(device),
+          "sD": torch.from_numpy(np.array(d["sD"])).to(device),
+          "N": torch.from_numpy(np.array(d["N"], np.int32)).to(device),
+          "Ql": torch.from_numpy(np.array(d["Q"][rows])).to(device),
+          "Pl": torch.from_numpy(np.array(d["P"][rows], np.int32))
+          .to(device)}
+    st["seed"] = torch.tensor(int(d["seed"]), dtype=torch.long,
+                              device=device)
+    for k in ("I", "J"):
+        st[k] = np.array(d[k], np.int32)
+    for k in ("LI", "LJ"):
+        st[k] = np.array(d[k])
+    return st

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import multihost as mh
 from . import build
 
 BLK = 512        # row-block height of the triangular Gram dots
@@ -190,6 +191,33 @@ def snp_matrix(seqs: torch.Tensor, paircmask: torch.Tensor,
     npos = int(((paircmask[:, None] >> sh) & 1).sum())
     # G = 4*matches - npos  =>  dist = npos - matches = (3*npos - G) / 4
     return ((3 * npos - _mirror_tril(gram)) // 4)[:n, :n]
+
+
+def sharded_snp_matrix(seqs: torch.Tensor, paircmask: torch.Tensor,
+                       wchunk: int | None = None) -> torch.Tensor:
+    """All-pairs SNP counts under a shared include mask, sample rows
+    split over the ranks of the row axis (parallel/multihost.py).
+
+    Every rank passes the same (n, W) int32 words and (W,) int32 pair
+    mask, on its device.  Per genome chunk each rank expands its own
+    rows (`expand_shared`), all-gathers the expanded blocks and takes
+    its (R, npad) block of the int8 Gram; the blocks are all-gathered at
+    the end.  Returns the (n, n) int32 distances on every rank,
+    bit-identical to `snp_matrix` and to ops/snp_jax.sharded_snp_matrix.
+    """
+    rank, world = mh.row_axis()
+    n, W = seqs.shape
+    npad = -(-n // (ROW_ALIGN * world)) * ROW_ALIGN * world
+    R = npad // world
+    mine = _pad_rows(seqs, npad)[rank * R:(rank + 1) * R]
+    wc = _layout(npad, W, wchunk)[2]
+    gram = torch.zeros((R, npad), dtype=torch.int32, device=seqs.device)
+    for w0 in range(0, W, wc):
+        X = expand_shared(mine[:, w0:w0 + wc], paircmask[w0:w0 + wc])
+        gram += torch._int_mm(X, mh.gather_rows(X).t())
+    sh = torch.arange(0, 32, 2, dtype=torch.int32, device=seqs.device)
+    npos = int(((paircmask[:, None] >> sh) & 1).sum())
+    return mh.gather_rows((3 * npos - gram) // 4)[:n, :n]
 
 
 def snp_matrix_pairwise(seqs: torch.Tensor, incmasks: torch.Tensor,

@@ -54,7 +54,8 @@ from .torch_engine import (KBATCH, _big, _chain_seed, _col_q, _init_caches,
                            _last_min, _limbs, _move_last, _no_pair, _record,
                            _records, _records_to_newick, _row_cache,
                            _row_chunks, _row_q, _scan_start,
-                           _update_d_exact, _walker_targets, square_matrix)
+                           _update_d_exact, _walker_targets, square_matrix,
+                           sums_exact, track_sums)
 
 METHODS = ("upgma", "ff", "cf", "hnj", "nj", "mn")
 _COMBINE = {"upgma": "avg", "ff": "max", "cf": "min"}
@@ -86,12 +87,13 @@ def _ff_row_min(newD, j: int, idx, big):
     return m, torch.where(dv == m, idx[:j], j).min()
 
 
-def _update_d_comb(D, sD, N, i: int, j: int, m_t: int, idx, combine: str):
+def _update_d_comb(D, sD, N, i: int, j: int, m_t: int, idx, combine: str,
+                   exact=None):
     """Shared D/sD/N update for updateUPGMA/FF/CF (hclust.c:665-1306),
     in place: D(k,new) = combine(D_ik, D_kj); one-sided cells keep the
     surviving value with no sD adjustment; N drops for both/only_j.
     sD/N deltas target walker slots (torch_engine._walker_targets).
-    Returns (valid_k, newD)."""
+    Returns (valid_k, newD); `exact` as in torch_engine._update_d_exact."""
     idx = idx[:m_t]
     D_ik = D[i, :m_t]
     D_kj = D[j, :m_t]
@@ -116,7 +118,10 @@ def _update_d_comb(D, sD, N, i: int, j: int, m_t: int, idx, combine: str):
     tgt, _ = _walker_targets(adv, i, j, idx)
     sD.index_add_(0, tgt, torch.where(both, -(D_ik + D_kj - d2), 0))
     N.index_add_(0, tgt, (both | only_j).to(torch.int32).neg())
-    sD[j] = torch.cumsum(torch.where(adv, newD, 0), 0)[-1]
+    summand = torch.where(adv, newD, 0)
+    if exact is not None:
+        exact &= sums_exact(summand)
+    sD[j] = torch.cumsum(summand, 0)[-1]
     N[j] = 1 + adv.sum()
     newrow = torch.where(valid_k, newD, D_kj)
     D[j, :m_t] = newrow
@@ -196,12 +201,13 @@ def _one_join_h(st, t: int, m: int, neg_limbs: bool, method: str):
     if i == 0 and j == 0:
         return _no_pair(st, t, last, big)
 
-    Li, Lj = _limbs(D, sD, N, i, j, neg_limbs)
+    Li, Lj = _limbs(D, sD, N, i, j, neg_limbs, st, t)
     _record(st, t, i, j, Li, Lj)
 
     # ---- update (method-specific)
     if hnj:
-        valid_k, newD = _update_d_exact(D, sD, N, i, j, Li, Lj, m_t, idx)
+        valid_k, newD = _update_d_exact(D, sD, N, i, j, Li, Lj, m_t, idx,
+                                        st.get("exact"))
         # updatePrevQ (hclust.c:413-450): refresh every cached Q via its
         # cached partner under the updated sD/N
         prt = P[:m_t].long().clamp_min(0)
@@ -213,7 +219,7 @@ def _one_join_h(st, t: int, m: int, neg_limbs: bool, method: str):
                              coefp * dprev - sD[:m_t] - sD[prt], Qa))
     else:
         valid_k, newD = _update_d_comb(D, sD, N, i, j, m_t, idx,
-                                       _COMBINE[method])
+                                       _COMBINE[method], st.get("exact"))
 
     # ---- row-j cache rebuild
     if hnj:
@@ -330,9 +336,9 @@ def _one_join_e(st, t: int, m: int, neg_limbs: bool, method: str):
                                   method)).tolist()
     if i == 0 and j == 0:
         return _no_pair(st, t, m_t - 1, None)
-    Li, Lj = _limbs(D, sD, N, i, j, neg_limbs)
+    Li, Lj = _limbs(D, sD, N, i, j, neg_limbs, st, t)
     _record(st, t, i, j, Li, Lj)
-    _update_d_exact(D, sD, N, i, j, Li, Lj, m_t, idx)
+    _update_d_exact(D, sD, N, i, j, Li, Lj, m_t, idx, st.get("exact"))
     if i != m_t - 1:
         _move_last(D, sD, N, i, m_t)
 
@@ -375,19 +381,22 @@ def _new_state(D, m: int, method: str):
     return st, _h_segment
 
 
-def hclust_joins(D, m: int, method: str = "upgma", neg_limbs=False):
+def hclust_joins(D, m: int, method: str = "upgma", neg_limbs=False,
+                 exact_sums=False):
     """Run all m-2 joins of one heuristic-family method on the device
     of D, in place.
 
     D: (n, n) square distance matrix (missing < 0, diagonal 0), n >= m;
     m: active count.  method in METHODS.  Returns (I, J, LI, LJ,
     d_last, D) as torch_engine.dnj_joins does; records with I == J == 0
-    mean "no joinable pair left".
+    mean "no joinable pair left".  exact_sums as there.
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, not {method!r}")
     m = int(m)
     st, seg = _new_state(D, m, method)
+    if exact_sums:
+        track_sums(st, m)
     run_segmented(
         lambda st, t0, t1: seg(st, t0, t1, m, neg_limbs, method),
         st, max(m - 2, 0))
@@ -397,12 +406,13 @@ def hclust_joins(D, m: int, method: str = "upgma", neg_limbs=False):
 def build_tree_hclust(flat64: np.ndarray, n: int, names: list,
                       method: str = "upgma", flag: int = 0,
                       precision: int = 9, dtype=torch.float32,
-                      device=None) -> bytes:
+                      device=None, exact_sums=False) -> bytes:
     """Device join loop for the heuristic/UPGMA family; Newick bytes
     (no ';').  Missing cells supported."""
     dev = default_device() if device is None else torch.device(device)
     D = torch.from_numpy(square_matrix(flat64, n)).to(dev, dtype)
     I, J, LI, LJ, d_last, _ = hclust_joins(D, n, method=method,
-                                           neg_limbs=bool(flag & 2))
+                                           neg_limbs=bool(flag & 2),
+                                           exact_sums=exact_sums)
     return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
                               precision)

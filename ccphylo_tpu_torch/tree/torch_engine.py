@@ -41,7 +41,11 @@ and `sum` on CUDA are parallel, not the C's left-to-right sums, and
 here, so sD and Q can differ from the host engine's in the last ulp,
 and on tie-dense data an ulp can flip a pick.  Ties themselves,
 including the guaranteed three-way tie at the final join, resolve
-identically by construction.
+identically by construction.  With ``exact_sums`` an engine tracks the
+exact range as it runs (`sums_exact`: one flag on the device, read with
+each join's limbs) and raises InexactSums at the first join that could
+read a sum outside it; the default CLI route then hands the tree to the
+host engine.
 
 The quantized engine keeps D as u16 or u8 cells with the reference's
 ByteScale quantization (bytescale.h:22-23).  u16 cells are held as
@@ -71,6 +75,47 @@ def _big(dtype) -> float:
 
 def _np_float(dtype):
     return np.float64 if dtype == torch.float64 else np.float32
+
+
+class InexactSums(ArithmeticError):
+    """The row sums of a float engine left the exact range of its
+    precision (`sums_exact`) before join `join`: from there a sum on the
+    card may differ from the host engine's left-to-right sum in its last
+    bit."""
+
+    def __init__(self, join: int):
+        super().__init__(f"row sums left the exact range before join {join}")
+        self.join = join
+
+
+def sums_exact(x, dim: int = -1):
+    """Whether every partial sum of x along `dim`, in any order, is exact
+    in x's precision: with s + 1 < 2^e (s the sum of |x|), the entries
+    lie on the grid 2^-k, k = mantissa - e, so every partial sum is a
+    multiple of 2^-k below 2^mantissa, one bit to spare.  Exponents come
+    from frexp and the power of two is built from its bits, not from
+    log2 or pow, which CUDA need not round exactly.  Device operations
+    only: a bool tensor, no host read."""
+    mant, bias, itype = (52, 1023, torch.int64) if x.dtype == torch.float64 \
+        else (23, 127, torch.int32)
+    e = torch.frexp(x.abs().sum(dim, keepdim=True) + 1).exponent
+    p2 = ((mant + bias - e).to(itype) << mant).view(x.dtype)  # 2^k
+    y = x * p2
+    return (y == torch.round(y)).all(dim)
+
+
+def track_sums(st, m: int, cells=None) -> None:
+    """Start tracking the exact range on the state `st` of m active taxa:
+    st["exact"] says whether every row sum taken so far (the init's here,
+    each join's then, see `_update_d_exact`) was exact; `_limbs` reads it
+    with the pair's values and raises InexactSums when it is not.
+    cells(r0, r1): rows r0..r1 of the m x m matrix (default st["D"])."""
+    cells = cells or (lambda r0, r1: st["D"][r0:r1, :m])
+    ok = torch.ones((), dtype=torch.bool, device=st["sD"].device)
+    for r0, r1 in _row_chunks(m):
+        Dr = cells(r0, r1)
+        ok &= sums_exact(torch.where(Dr >= 0, Dr, 0), dim=1).all()
+    st["exact"] = ok
 
 
 def _last_min(q, idx):
@@ -190,7 +235,7 @@ def _walker_targets(adv, i: int, j: int, idx):
 
 
 def _update_d_exact(D, sD, N, i: int, j: int, Li: float, Lj: float,
-                    m_t: int, idx):
+                    m_t: int, idx, exact=None):
     """updateD (nj.c:836-1044) with the reference's exact bookkeeping,
     in place on the m_t active taxa:
 
@@ -201,7 +246,8 @@ def _update_d_exact(D, sD, N, i: int, j: int, Li: float, Lj: float,
       (stored - garbage), not the stored value.
 
     Returns (valid_k, newD): the mask of the cells k != i, j and the
-    updated row j with -1 outside it.
+    updated row j with -1 outside it.  `exact`, if given, is the flag of
+    `track_sums`, and-ed with the exactness of the sum of row j.
     """
     idx = idx[:m_t]
     D_ik = D[i, :m_t]
@@ -242,7 +288,10 @@ def _update_d_exact(D, sD, N, i: int, j: int, Li: float, Lj: float,
     sD.index_add_(0, tgt, torch.where(adv, sd_delta, 0))
     N.index_add_(0, tgt, (both | only_j).to(torch.int32).neg())
     # row/col j rebuild (C accumulation order = ascending k)
-    sD[j] = torch.cumsum(torch.where(adv, contrib, 0), 0)[-1]
+    summand = torch.where(adv, contrib, 0)
+    if exact is not None:
+        exact &= sums_exact(summand)
+    sD[j] = torch.cumsum(summand, 0)[-1]
     N[j] = 1 + adv.sum()
     newrow = torch.where(valid_k, stored, D_kj)
     D[j, :m_t] = newrow
@@ -271,11 +320,19 @@ def _limb_lengths(D_ij, sDi, sDj, Ni: int, Nj: int, neg_limbs: bool, f):
     return float(Li), float(Lj)
 
 
-def _limbs(D, sD, N, i: int, j: int, neg_limbs: bool):
+def _limbs(D, sD, N, i: int, j: int, neg_limbs: bool, st=None, t=0):
     """Limb lengths of the pair (i, j) from the pre-update state: one
-    host read of D_ij, sD and N of both rows (all exact in float64)."""
-    vals = torch.stack([D[i, j].double(), sD[i].double(), sD[j].double(),
-                        N[i].double(), N[j].double()]).tolist()
+    host read of D_ij, sD and N of both rows (all exact in float64).
+    With a state `st` whose exact range is tracked (`track_sums`), its
+    flag comes in the same read; join t raises InexactSums if a row sum
+    before it was not exact."""
+    vals = [D[i, j].double(), sD[i].double(), sD[j].double(),
+            N[i].double(), N[j].double()]
+    if st is not None and "exact" in st:
+        vals.append(st["exact"].double())
+    vals = torch.stack(vals).tolist()
+    if len(vals) > 5 and not vals[5]:
+        raise InexactSums(t)
     return _limb_lengths(vals[0], vals[1], vals[2], int(vals[3]) - 2,
                          int(vals[4]) - 2, neg_limbs, _np_float(D.dtype))
 
@@ -452,9 +509,9 @@ def _one_join(st, t: int, m: int, neg_limbs: bool, scan: str):
     if i == 0 and j == 0:
         return _no_pair(st, t, last, big)
 
-    Li, Lj = _limbs(D, sD, N, i, j, neg_limbs)
+    Li, Lj = _limbs(D, sD, N, i, j, neg_limbs, st, t)
     _record(st, t, i, j, Li, Lj)
-    _update_d_exact(D, sD, N, i, j, Li, Lj, m_t, idx)
+    _update_d_exact(D, sD, N, i, j, Li, Lj, m_t, idx, st.get("exact"))
 
     # ---- updateDNJ cache repair + mi candidate (dnj.c:607-710)
     Qj, Pj = _row_cache(_row_q(D, sD, N, j, big), idx, big)
@@ -505,7 +562,7 @@ def _new_state(D, m: int) -> dict:
             **_records(n, D.dtype)}
 
 
-def dnj_joins(D, m: int, neg_limbs=False, scan="batch"):
+def dnj_joins(D, m: int, neg_limbs=False, scan="batch", exact_sums=False):
     """Run all m-2 DNJ joins on the device of D, in place.
 
     D: (n, n) square distance matrix (missing < 0, diagonal 0), n >= m;
@@ -520,11 +577,17 @@ def dnj_joins(D, m: int, neg_limbs=False, scan="batch"):
     C's running min at every row visit, so exactly the rows minQpair
     would recompute get fresh caches (see `_batch_scan`), and batches
     are taken in the C's descending row order.
+
+    exact_sums: track the exact range (`track_sums`) and raise
+    InexactSums at the first join whose picks or limbs could read a row
+    sum that is not exact (the sums of the last join feed none).
     """
     if scan not in ("seq", "batch"):
         raise ValueError(f"scan must be seq or batch, not {scan!r}")
     m = int(m)
     st = _new_state(D, m)
+    if exact_sums:
+        track_sums(st, m)
     run_segmented(
         lambda st, t0, t1: _dnj_segment(st, t0, t1, m, neg_limbs, scan),
         st, max(m - 2, 0))
@@ -619,7 +682,12 @@ def _one_join_q(st, t: int, m: int, bytescale: float, neg_limbs: bool):
 
     rowi = _deq(Dq[i, :m_t], dtype, inv)
     rowj = _deq(Dq[j, :m_t], dtype, inv)
-    D_ij, sDi, sDj = torch.stack([rowi[j], sD[i], sD[j]]).tolist()
+    vals = [rowi[j], sD[i], sD[j]]
+    if "exact" in st:
+        vals.append(st["exact"].to(dtype))
+    D_ij, sDi, sDj, *ok = torch.stack(vals).tolist()
+    if ok and not ok[0]:
+        raise InexactSums(t)
     Li, Lj = _limb_lengths(D_ij, sDi, sDj, m_t - 2, m_t - 2, neg_limbs,
                            _np_float(dtype))
     _record(st, t, i, j, Li, Lj)
@@ -633,7 +701,10 @@ def _one_join_q(st, t: int, m: int, bytescale: float, neg_limbs: bool):
     d_new = ((rowi + rowj - D_ij) / 2).clamp_min(0.0)
     sa = sD[:m_t]
     sa.copy_(torch.where(valid_k, sa - (rowi + rowj - d_new), sa))
-    sD[j] = torch.cumsum(torch.where(valid_k, d_new, 0), 0)[-1]
+    summand = torch.where(valid_k, d_new, 0)
+    if "exact" in st:
+        st["exact"] &= sums_exact(summand)
+    sD[j] = torch.cumsum(summand, 0)[-1]
     cells = torch.where(valid_k, _quant(d_new, bytescale, 0.25, Dq.dtype),
                         Dq[j, :m_t])
     Dq[j, :m_t] = cells
@@ -678,7 +749,7 @@ def _dnj_segment_q(st, t0: int, t1: int, m: int, bytescale: float,
 
 
 def dnj_joins_q(Dq, m: int, bytescale: float, neg_limbs=False,
-                compute_dtype=torch.float32):
+                compute_dtype=torch.float32, exact_sums=False):
     """Quantized-storage DNJ: D lives on the device as u16 (int16 bit
     patterns, see `quant_cells`) or u8 cells with the reference's
     ByteScale quantization (bytescale.h:22-23), compute in
@@ -692,7 +763,8 @@ def dnj_joins_q(Dq, m: int, bytescale: float, neg_limbs=False,
     trunc(d*scale + 0.25) (nj.c:905); sD bookkeeping uses the
     unquantized update values (nj.c:907-911), later reads see the
     quantized cells.  The scan is the batch scan of `dnj_joins`.
-    Returns (I, J, LI, LJ, d_last, Dq), as `dnj_joins`.
+    Returns (I, J, LI, LJ, d_last, Dq), as `dnj_joins`; exact_sums as
+    there.
     """
     if Dq.dtype not in (torch.int16, torch.uint8):
         raise ValueError(f"cells must be int16 (u16 bit patterns) or "
@@ -704,6 +776,10 @@ def dnj_joins_q(Dq, m: int, bytescale: float, neg_limbs=False,
     st = {"Dq": Dq, "sD": sD, "Q": Q, "P": P, "seed": seed,
           "idx": torch.arange(n, device=Dq.device),
           **_records(n, compute_dtype)}
+    if exact_sums:
+        inv = _inv(bytescale, compute_dtype)
+        track_sums(st, m, lambda r0, r1: _deq(Dq[r0:r1, :m], compute_dtype,
+                                              inv))
     run_segmented(
         lambda st, t0, t1: _dnj_segment_q(st, t0, t1, m, bytescale,
                                           neg_limbs),
@@ -782,7 +858,8 @@ def square_matrix(flat64: np.ndarray, n: int, fill: float = -1.0):
 def build_tree_q(flat64: np.ndarray, n: int, names: list,
                  flag: int = 0, precision: int = 9,
                  bytescale: float = 1.0, store: str = "u16",
-                 compute_dtype=torch.float32, device=None) -> bytes:
+                 compute_dtype=torch.float32, device=None,
+                 exact_sums=False) -> bytes:
     """Device DNJ with quantized (u16/u8 ByteScale) matrix storage;
     Newick bytes (no ';').
 
@@ -795,7 +872,7 @@ def build_tree_q(flat64: np.ndarray, n: int, names: list,
     Dq = quant_cells(square_matrix(qv, n, 0.0).astype(npdt)).to(dev)
     I, J, LI, LJ, d_last, _ = dnj_joins_q(
         Dq, n, bytescale, neg_limbs=bool(flag & 2),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, exact_sums=exact_sums)
     return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
                               precision)
 
@@ -803,11 +880,11 @@ def build_tree_q(flat64: np.ndarray, n: int, names: list,
 def build_tree_float(flat64: np.ndarray, n: int, names: list,
                      flag: int = 0, precision: int = 9,
                      dtype=torch.float32, scan: str = "batch",
-                     device=None) -> bytes:
+                     device=None, exact_sums=False) -> bytes:
     """Device DNJ over a loaded ltd matrix; Newick bytes (no ';')."""
     dev = default_device() if device is None else torch.device(device)
     D = torch.from_numpy(square_matrix(flat64, n)).to(dev, dtype)
     I, J, LI, LJ, d_last, _ = dnj_joins(D, n, neg_limbs=bool(flag & 2),
-                                        scan=scan)
+                                        scan=scan, exact_sums=exact_sums)
     return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
                               precision)

@@ -41,30 +41,38 @@ exits non-zero, no exception is caught:
    asserted, joins/s printed.  Then dnj on u16 cells (-s) and on u8
    cells (`device64` -b), both byte-equal to the host engine; dnj,
    upgma, cf and hnj on a matrix of random integers in [0, 25), far
-   from additive and dense in ties, byte-equal too; the same with 12%
+   from additive and dense in ties, byte-equal too (the default route
+   tracks float64's exact range: a run whose row sums leave it is
+   handed to the host engine with a note, and is then timed under
+   `device64`, its bytes printed, not asserted); the same with 12%
    of the cells missing (the default route goes to the host with its
    note; `device64` runs on the card, equality printed); dnj on
    float32 state (`device`; shape only, agreement with the float64
    run printed); how many of float64's 53 bits the cells and row sums
    of the SNP and the random run used (`exact_range`: every sum must
-   be exact); a non-integer copy of the SNP matrix (the default route
-   goes to the host with its note, `device64` -m upgma runs on the
-   card); and dnj in float64 at n = 4096 from phase 4's outbreak
+   be exact); on a caterpillar-like matrix of N_CATERPILLAR taxa, the
+   bits dnj and upgma reach and the default route (dnj leaves the exact
+   range and goes to the host with its note); a non-integer copy of the
+   SNP matrix (the default route goes to the host with its note,
+   `device64` -m upgma runs on the card); and dnj in float64 at
+   n = N_DEPTH from phase 4's outbreak
    model, timed, byte-equal to the host exact engine (the depth is cut
    to leave the script's time limit to the other phases: the host
-   engine needs 4-5 minutes at n = 8192).  The host engine's runs are
+   engine needs 4-5 minutes at n = 8192; the sharded phase runs this
+   engine at n = 8192).  The host engine's runs are
    made in worker processes after the card's timed runs, but for the
    three that take a minute or more (the one at depth, nj and mn),
    which run in workers beside them;
 6. streamed (run right after phase 4, on its matrix): the row-cache
    engine (tree/streamed_engine.py) on the n = 32768 u8 matrix held on
    the host (1 GiB) with a cache of X = 8192 rows on the card: the first
-   8192 joins, records equal to the packed engine's on the same matrix,
+   STREAM_JOINS joins, records equal to the packed engine's on the same
+   matrix,
    joins/s of both, misses, rows and bytes uploaded, and the shares of
    the run spent in uploads, in the host replay and in driving the
    card.  The launch count of `qrow_mins_slots` in the
-   `kernels` line is this run's.  Then a whole run at n = 8192,
-   X = 2048: every record and the final matrix equal the packed
+   `kernels` line is this run's.  Then a whole run at n = N_STREAM,
+   X = X_STREAM: every record and the final matrix equal the packed
    engine's;
 7. matdist: k = 128 count matrices of L = 1 Mbp made on the card from a
    seed (uint16, depth ~40, a tenth of the positions shallow, three
@@ -74,17 +82,28 @@ exits non-zero, no exception is caught:
    all, sums bit-equal for l1 and linf, the largest relative error
    printed for the rest; pair-positions/s and the shares of the time
    spent packing chunks and in the copy calls; whether z's gate on
-   the card equals the host's on every column up to depth 4096;
-8. CLI: python -m ccphylo_tpu_torch dist, tree -m dnj -b, tree -m nj
+   the card equals the host's on every column up to depth 4096 and on
+   the columns around each alpha's crossing up to depth 65535;
+8. sharded (run after phase 5, on the main path's matrix): the engines
+   of parallel/ at world size 1 through a real NCCL group on the card:
+   sharded_snp_matrix at n = 2048, L = 1 Mbp against snp_matrix (its
+   snp_expand_shared launches counted), sharded DNJ in float64 at
+   n = 8192 against the float64 engine (records bit-equal, joins/s,
+   passes, host reads and collectives per join), nj and upgma at
+   n = 2048 against the same function on CPU tensors in worker
+   processes (gloo);
+9. CLI: python -m ccphylo_tpu_torch dist, tree -m dnj -b, tree -m nj
    and tree -m dnj on make_dataset files, on the card by default,
-   byte-equal to the same commands on the host code; dist on the
+   byte-equal to the same commands on the host code, and tree -m dnj
+   under CCPHYLO_TORCH_ENGINE=sharded against its run on CPU tensors;
+   dist on the
    .mat.gz files: -d l1, z (the card) byte-equal to the host metrics,
    -d cos (the host, with its stderr line) and -d cos under
    CCPHYLO_TORCH_DIST=device (the card, cells within 1e-9).
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
-named phases (kernels, main_path, scale, streamed, engines, matdist,
-cli, profile) and
+named phases (kernels, main_path, scale, streamed, engines, sharded,
+matdist, cli, profile) and
 prints their results without the contract lines: for work on one
 phase.  `profile` runs only when named: 64 joins of each device engine
 at n = 2048 on the host's clock and the next 64 in a torch.profiler
@@ -118,6 +137,9 @@ from ccphylo_tpu_torch.cli import dist_cmd, tree_cmd
 from ccphylo_tpu_torch.io.qseqs import Name
 from ccphylo_tpu_torch.ops import build, matdist_torch, scan, snp, snp_torch
 from ccphylo_tpu_torch.ops.veccmp import cmp_mats, get_veccmp, p_chisqr
+from ccphylo_tpu_torch.parallel import multihost
+from ccphylo_tpu_torch.parallel import sharded_dnj as sd
+from ccphylo_tpu_torch.parallel import sharded_nj as snj
 from ccphylo_tpu_torch.tree.exact import build_tree
 from ccphylo_tpu_torch.tree import hclust_engine as he
 from ccphylo_tpu_torch.tree import packed_engine as pe
@@ -129,7 +151,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 N_DIST, L_DIST = 2048, 1_000_000
 N_SCALE, L_SCALE = 32768, 100_000
-N_DEPTH = 4096       # the float64 DNJ engine's run at depth
+# the depths below were cut in turn as phases were added, to keep the
+# script inside its time limit (PERF.md section 4)
+N_DEPTH = 3072       # the float64 DNJ engine's run at depth
+N_CATERPILLAR = 2048  # exact_range on a matrix that joins along a chain
+N_SHARDED = 8192     # the sharded DNJ engine beside the float64 engine
 PROFILE_JOINS = 64   # joins under torch.profiler in the `profile` phase
 TREE_METHODS = ("dnj", "upgma", "ff", "cf", "hnj", "nj", "mn")
 RANDOM_METHODS = ("dnj", "upgma", "cf", "hnj")  # run on the random matrix
@@ -139,12 +165,16 @@ PREFIX_JOINS = 1024  # plain-scan check of the phase-4 run
 CHECKED_JOINS = 256  # joins of a run on which dnj_scan is held to plain
 KBATCH = 128         # candidate rows per scan pass (the engine's default)
 X_SCALE = 8192       # cache rows of the row-cache engine at n = N_SCALE
-STREAM_JOINS = 8192  # its joins held against the packed engine's
+STREAM_JOINS = 4096  # its joins held against the packed engine's
 STREAM_MORE = 1024   # its first joins, timed beside the passes scan's
-N_STREAM, X_STREAM = 8192, 2048  # its whole run
+N_STREAM, X_STREAM = 4096, 1024  # its whole run
 K_MAT, L_MAT, L_MAT_SMALL = 128, 1_000_000, 100_000  # count matrices
 MAT_MIN_DEPTH = 15   # dist's default -E
 MAT_PAIRS = 32       # pairs held against the host's cmp_mats
+Z_DEPTH = 65535      # z's gate: every total a uint16 count allows
+# chi-square (1 df) critical values: z's gate flips where q crosses them
+Z_CRITICAL = {0.05: 3.841458820694124, 0.01: 6.634896601021214,
+              0.001: 10.827566170662733}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_META = {
     "snp_expand_shared": ("ccphylo_tpu_torch/csrc/snp_expand.cu",
@@ -899,23 +929,39 @@ def held_to_host(method, S, R, host, pairs):
     return rel, same, gate
 
 
-def z_gate_on_card(dev, tmax=4096):
-    """Whether z's gate p_chisqr(q) <= alpha on the card equals the
-    host's for every column of total t <= tmax and majority count
-    mx <= t, at three alphas."""
+def z_gates_equal(q, dev) -> bool:
+    """Whether p_chisqr(q) <= alpha on the card equals the host's for
+    every q, at the three alphas."""
+    ph = p_chisqr(q)
+    pc = matdist_torch._p_chisqr(torch.from_numpy(q).to(dev)).cpu().numpy()
+    return all(bool(((pc <= a) == (ph <= a)).all()) for a in Z_CRITICAL)
+
+
+def z_gate_on_card(dev, tmax=4096, tdeep=Z_DEPTH, window=8):
+    """Whether z's gate p_chisqr(q) <= alpha, q = (t - 2 mx)^2 / t, on
+    the card equals the host's at three alphas: for every column of
+    total t <= tmax and majority count mx <= t; then, the gate being
+    monotone in q on each side of mx = t/2, for every total t <= tdeep
+    on the counts within `window` of each crossing.  Returns (equal,
+    columns compared)."""
     t = np.arange(1, tmax + 1, dtype=np.float64)
-    equal = True
+    equal, count = True, 0
     for t0 in range(0, tmax, 512):
         T, M = np.meshgrid(t[t0:t0 + 512], np.arange(0, tmax + 1.0),
                            indexing="ij")
         keep = M <= T
-        q = (T[keep] - 2 * M[keep]) ** 2 / T[keep]
-        ph = p_chisqr(q)
-        pc = matdist_torch._p_chisqr(torch.from_numpy(q).to(dev)) \
-            .cpu().numpy()
-        for alpha in (0.05, 0.01, 0.001):
-            equal &= bool(((pc <= alpha) == (ph <= alpha)).all())
-    return equal
+        equal &= z_gates_equal((T[keep] - 2 * M[keep]) ** 2 / T[keep], dev)
+        count += int(keep.sum())
+    t = np.arange(1, tdeep + 1, dtype=np.float64)[:, None]
+    off = np.arange(-window, window + 1)
+    for qc in Z_CRITICAL.values():
+        low = np.floor((t - np.sqrt(qc * t)) / 2)  # the lower crossing
+        M = np.concatenate([low + off, t - low + off], axis=1)
+        T = np.broadcast_to(t, M.shape)
+        keep = (M >= 0) & (M <= T)
+        equal &= z_gates_equal((T[keep] - 2 * M[keep]) ** 2 / T[keep], dev)
+        count += int(keep.sum())
+    return equal, count
 
 
 def phase_matdist(dev, res):
@@ -1007,10 +1053,14 @@ def phase_matdist(dev, res):
             f"largest relative error {rel:.3e}"
             f"{', sums bit-equal to the host' if same else ''}")
     out["bit_equal_on_card"] = exact
-    out["z_gate_equal_to_depth_4096"] = z_gate_on_card(dev)
+    equal, cols = z_gate_on_card(dev)
+    out["z_gate_equal_to_depth_65535"] = equal
+    out["z_gate_columns"] = cols
     log(f"bit-equal to the host on {len(pairs)} pairs on the card: {exact}; "
-        f"z's gate equals the host's on every column up to depth 4096: "
-        f"{out['z_gate_equal_to_depth_4096']}")
+        f"z's gate equals the host's on every column up to depth 4096 and "
+        f"around each alpha's crossing up to depth {Z_DEPTH} ({cols} "
+        f"columns, 3 alphas): {equal}")
+    assert equal, "z's gate differs from the host's"
 
 # ---------------------------------------------------------------------
 # phase 5: the float and quantized device engines of every tree method
@@ -1042,6 +1092,16 @@ def random_flat(dev, g, n, lo, hi, drop=0.0):
     return flat.cpu().numpy()
 
 
+def caterpillar_flat(dev, g, n):
+    """A loaded ltd matrix that joins along a chain: D_ij = |i - j| plus
+    integer noise in [0, 2].  Each join stores (D_ik + D_kj - D_ij) / 2
+    into the lineage the next join takes up again, so the fractional
+    bits of the cells pile up with the depth of the tree."""
+    i, j = np.tril_indices(n, -1)
+    noise = torch.randint(0, 3, (len(i),), device=dev, generator=g)
+    return (i - j + noise.cpu().numpy()).astype(np.float64)
+
+
 def assert_tree_shape(nwk, I, J, n):
     """n-2 joins with j < i inside the active taxa, and a Newick with n
     leaves."""
@@ -1051,19 +1111,54 @@ def assert_tree_shape(nwk, I, J, n):
     assert nwk.count(b"(") == nwk.count(b")")
 
 
-def dispatch(flat, n, method, dtype, engine=None, bytescale=1.0):
+class _HandedOff(Exception):
+    pass
+
+
+def _stop_at_host(*args, **kw):
+    raise _HandedOff
+
+
+def dispatch(flat, n, method, dtype, engine=None, bytescale=1.0,
+             handoff=True):
     """tree_cmd._dispatch_build at the CLI defaults under
     CCPHYLO_TORCH_ENGINE=engine (None: unset); returns (Newick, seconds,
-    the engine that ran)."""
+    the engine that ran).  handoff=False: a device run that the
+    dispatcher hands to the host engine (its row sums left the exact
+    range) stops there, (None, seconds, "exact"); its note is on
+    stderr."""
     os.environ.pop("CCPHYLO_TORCH_ENGINE", None)
     if engine:
         os.environ["CCPHYLO_TORCH_ENGINE"] = engine
+    host = tree_cmd.build_tree
+    if not handoff:
+        tree_cmd.build_tree = _stop_at_host
     try:
         nwk, t = synced(lambda: tree_cmd._dispatch_build(
             flat, n, iso_names(n), method, 0, 9, dtype, bytescale))
+    except _HandedOff:
+        nwk, t = None, 0.0
     finally:
         os.environ.pop("CCPHYLO_TORCH_ENGINE", None)
+        tree_cmd.build_tree = host
     return nwk, t, tree_cmd._dispatch_build.last_engine
+
+
+def card_route(flat, n, method, dtype, want, handed, key):
+    """The default route on the card: the engine `want`, or, where its
+    row sums leave float64's exact range, the host engine (its note in
+    handed[key]; the card's rate is then taken under device64, whose
+    bytes are not promised).  Returns the `runs` entry (matrix, method,
+    dtype, Newick, seconds, engine)."""
+    note = io.StringIO()
+    with contextlib.redirect_stderr(note):
+        nwk, t, ran = dispatch(flat, n, method, dtype, handoff=False)
+    if ran == "exact":
+        assert "exact range" in note.getvalue(), note.getvalue()
+        handed[key] = note.getvalue().strip()
+        nwk, t, ran = dispatch(flat, n, method, dtype, "device64")
+    assert ran == want, (method, dtype, ran)
+    return flat, method, dtype, nwk, t, ran
 
 
 def host_tree(flat, n, method, dtype="d"):
@@ -1084,18 +1179,23 @@ def fraction_bits(A: np.ndarray) -> int:
     return int((53 - zeros - exp).max(initial=0))
 
 
-def exact_range(flat, n, dev, every=64):
-    """The float64 DNJ engine on the card, stopped every `every` joins
-    to read how far its state is from the end of float64's exact range:
-    the fractional bits of the cells, the bits a row sum needs (integer
-    bits of the largest sum plus those fractional bits), and whether
-    every sD equals the sum of its row taken in 64-bit-mantissa long
-    doubles on the host (it does while the sums are exact).  Complete
-    matrices only.  Returns (I, J, statistics)."""
+def exact_range(flat, n, dev, every=64, method="dnj"):
+    """The float64 engine of `method` (dnj or upgma) on the card, stopped
+    every `every` joins to read how far its state is from the end of
+    float64's exact range: the fractional bits of the cells, the bits a
+    row sum needs (integer bits of the largest sum plus those fractional
+    bits), and whether every sD equals the sum of its row taken in
+    64-bit-mantissa long doubles on the host (it does while the sums are
+    exact).  Complete matrices only.  Returns (the engine's final state,
+    statistics); run_s is the seconds of its joins alone."""
     D = torch.from_numpy(te.square_matrix(flat, n)).to(dev)
-    st = te._new_state(D, n)
+    if method == "dnj":
+        st, seg = te._new_state(D, n), te._dnj_segment
+    else:
+        st, seg = he._new_state(D, n, method)
+        seg = functools.partial(seg, method=method)
     out = {"fraction_bits": 0, "sum_bits": 0, "inexact_sums": 0,
-           "states_read": 0}
+           "states_read": 0, "run_s": 0.0}
     for t0 in range(0, n - 2, every):
         m_t = n - t0
         A = st["D"][:m_t, :m_t].cpu().numpy()
@@ -1107,8 +1207,9 @@ def exact_range(flat, n, dev, every=64):
                               bits + int(np.ceil(np.log2(sD.max() + 1))))
         out["inexact_sums"] += int((wide != sD.astype(np.longdouble)).sum())
         out["states_read"] += 1
-        te._dnj_segment(st, t0, min(t0 + every, n - 2), n)
-    return st["I"][:n - 2].copy(), st["J"][:n - 2].copy(), out
+        out["run_s"] += synced(lambda: seg(st, t0, min(t0 + every, n - 2),
+                                           n))[1]
+    return st, out
 
 
 def phase_engines(dev, g, res, flat=None):
@@ -1144,29 +1245,39 @@ def engines_on_card(dev, g, res, flat, pool):
     # default route) and on u8 cells (device64 -b)
     te.dnj_joins(torch.zeros((64, 64), dtype=torch.float64, device=dev),
                  64)  # warm-up outside the timed runs
+    handed = out["handed_to_host"] = {}
     for method in TREE_METHODS:
         want = "float64" if method == "dnj" else "hclust/float64"
-        nwk, t, ran = dispatch(flat, n, method, "d")
-        assert ran == want, (method, ran)
-        runs[method] = (flat, method, "d", nwk, t, ran)
-    for dtype, engine, want in (("s", None, "u16/float64"),
-                                ("b", "device64", "u8/float64")):
-        nwk, t, ran = dispatch(flat, n, "dnj", dtype, engine)
-        assert ran == want, ran
-        runs["dnj -" + dtype] = (flat, "dnj", dtype, nwk, t, ran)
+        runs[method] = card_route(flat, n, method, "d", want, handed, method)
+    runs["dnj -s"] = card_route(flat, n, "dnj", "s", "u16/float64", handed,
+                                "dnj -s")
+    nwk, t, ran = dispatch(flat, n, "dnj", "b", "device64")
+    assert ran == "u8/float64", ran
+    runs["dnj -b"] = (flat, "dnj", "b", nwk, t, ran)
 
     # the default route on a matrix that is not additive: random
     # integers in [0, 25), the methods whose host run takes seconds
     rflat = random_flat(dev, g, n, 0, 25)
     for method in RANDOM_METHODS:
         want = "float64" if method == "dnj" else "hclust/float64"
-        nwk, t, ran = dispatch(rflat, n, method, "d")
-        assert ran == want, (method, ran)
-        runs[method + ", random cells"] = (rflat, method, "d", nwk, t, ran)
+        key = method + ", random cells"
+        runs[key] = card_route(rflat, n, method, "d", want, handed, key)
 
-    # dnj on float32 state: shape only; agreement with float64 printed
-    nwk32, t32, ran32 = dispatch(flat, n, "dnj", "d", "device")
+    # dnj on float32 state (the route of `device`): shape only;
+    # agreement with float64 printed
+    os.environ["CCPHYLO_TORCH_ENGINE"] = "device"
+    try:
+        ran32 = tree_cmd._engine_name(*tree_cmd._route(flat, "dnj", "d",
+                                                       1.0)[:3])
+    finally:
+        del os.environ["CCPHYLO_TORCH_ENGINE"]
     assert ran32 == "float32", ran32
+    D32 = torch.from_numpy(te.square_matrix(flat, n)).to(dev, torch.float32)
+    rec32, t32 = synced(lambda: te.dnj_joins(D32, n))
+    del D32
+    I32, J32 = (a[:joins] for a in rec32[:2])
+    nwk32 = te._records_to_newick(*rec32[:5], n, iso_names(n), 0, 9)
+    assert_tree_shape(nwk32, I32, J32, n)
 
     # a non-integer copy: the default route is the host, with its note;
     # device64 -m upgma runs on the card
@@ -1226,13 +1337,10 @@ def engines_on_card(dev, g, res, flat, pool):
         assert nwk.count(b"iso") == n
         missing[method] = (nwk, ran)
 
-    # the float32 run's records, and how much of float64's exact range
-    # the float64 runs above used
-    D32 = torch.from_numpy(te.square_matrix(flat, n)).to(dev, torch.float32)
-    I32, J32 = (a[:joins] for a in te.dnj_joins(D32, n)[:2])
-    assert_tree_shape(nwk32, I32, J32, n)
-    I64, J64, out["exact_range_snp"] = exact_range(flat, n, dev)
-    _, _, out["exact_range_random"] = exact_range(rflat, n, dev)
+    # how much of float64's exact range the float64 runs above used
+    st64, out["exact_range_snp"] = exact_range(flat, n, dev, every=128)
+    I64, J64 = st64["I"][:joins], st64["J"][:joins]
+    out["exact_range_random"] = exact_range(rflat, n, dev, every=128)[1]
     for key in ("exact_range_snp", "exact_range_random"):
         s = out[key]
         assert s["inexact_sums"] == 0 and s["sum_bits"] <= 53, (key, s)
@@ -1250,18 +1358,57 @@ def engines_on_card(dev, g, res, flat, pool):
         f"joins/s; {int(same.sum())} of {joins} joins pick the float64 "
         f"run's pair, the first {first} in a row")
 
+    # a caterpillar: the bits its float64 runs use, and the default
+    # route, which hands a run whose row sums leave float64's exact range
+    # to the host exact engine with a note
+    nc = N_CATERPILLAR
+    cflat = caterpillar_flat(dev, g, nc)
+    f_cat = pool.submit(host_tree, cflat, nc, "upgma")
+    on_card = {}
+    for method in ("dnj", "upgma"):
+        s = exact_range(cflat, nc, dev, every=128, method=method)[1]
+        out["exact_range_caterpillar_" + method] = s
+        note = io.StringIO()
+        with contextlib.redirect_stderr(note):  # the host's run not made
+            nwk, t, ran = dispatch(cflat, nc, method, "d", handoff=False)
+        to_host = ran == "exact"
+        s.update(default_route=ran, s=t, note=note.getvalue().strip())
+        assert to_host == ("exact range" in note.getvalue()), (method, s)
+        # the tracking must see what the sampled states show
+        assert to_host or not (s["inexact_sums"] or s["sum_bits"] > 53), s
+        if not to_host:
+            on_card[method] = nwk
+        log(f"caterpillar n={nc} -m {method} float64: cells reach "
+            f"{s['fraction_bits']} fractional bits, a row sum needs up to "
+            f"{s['sum_bits']} bits, {s['inexact_sums']} sums of "
+            f"{s['states_read']} states read are not exact; default route "
+            f"[{ran}] {t:.1f} s"
+            + (f", note: {s['note']}" if to_host else ""))
+
     hosts = {key: f.result() for key, f in futures.items()}
     host_miss = {m: f.result() for m, f in f_miss.items()}
+    host, t_host = f_cat.result()
+    if "upgma" in on_card:
+        assert on_card["upgma"] == host, "caterpillar -m upgma: Newick " \
+            "differs from the host exact engine"
+        log(f"caterpillar -m upgma on the card equals the host exact engine "
+            f"({t_host:.1f} s in a worker process)")
     host_depth, t_host_depth = f_depth.result()
     for key, (_, method, dtype, nwk, t, ran) in runs.items():
         host, t_host = hosts[key]
-        assert nwk == host, f"-m {key}: Newick differs from the host " \
-                            "exact engine"
+        # a run handed to the host on the default route was timed under
+        # device64: its bytes are shown, not promised
+        away = handed.get(key)
+        assert away or nwk == host, f"-m {key}: Newick differs from the " \
+                                    "host exact engine"
         out[key] = {"engine": ran, "s": t, "joins_per_s": joins / t,
-                    "host_exact_s": t_host}
+                    "host_exact_s": t_host, "equals_host": nwk == host,
+                    "default_route": "exact" if away else ran}
         log(f"tree n={n} -m {key} [{ran}]: {t:.3f} s, {joins / t:,.1f} "
             f"joins/s; Newick ({len(nwk)} bytes) equals the host exact "
-            f"engine ({t_host:.1f} s in a worker process)")
+            f"engine ({t_host:.1f} s in a worker process): {nwk == host}"
+            + (f"; the default route hands it to the host: {away}"
+               if away else ""))
     for method, (nwk, ran) in missing.items():
         host, t_host = host_miss[method]
         out[method + ", 12% missing"] = {
@@ -1279,6 +1426,132 @@ def engines_on_card(dev, g, res, flat, pool):
         f"{(nd - 2) / t_depth:,.1f} joins/s, peak device memory "
         f"{peak / 2 ** 20:.0f} MiB; Newick ({len(nwk_depth)} bytes) equals "
         f"the host exact engine ({t_host_depth:.1f} s in a worker process)")
+
+
+# ---------------------------------------------------------------------
+# phase 8: parallel/ and sharded_snp_matrix through NCCL
+
+
+def cpu_join_records(D, n, method):
+    """sharded_join_records in float64 on CPU tensors, in a worker
+    process: its own gloo group of one rank."""
+    os.environ["CCPHYLO_TORCH_DEVICE"] = "cpu"
+    torch.set_num_threads(2)
+    return snj.sharded_join_records(D, n, method, torch.float64)
+
+
+def sum_diff(ours, theirs) -> float:
+    """The largest |a - b| / max(|b|, 1) over paired float outputs."""
+    return max(float(np.max(np.abs(np.asarray(a, np.float64)
+                                   - np.asarray(b, np.float64))
+                            / np.maximum(np.abs(np.asarray(b)), 1.0),
+                            initial=0.0)) for a, b in zip(ours, theirs))
+
+
+def phase_sharded(dev, res, flat=None):
+    """The sharded engines at world size 1 through a real NCCL group on
+    the card (one card: no second rank).  sharded_snp_matrix against
+    snp_matrix at the main path's size, its snp_expand_shared launches
+    counted; sharded DNJ in float64 at n = N_SHARDED beside the float64
+    engine on the same matrix, records bit-equal, joins/s, passes, host
+    reads and collectives per join; nj and upgma at n = 2048 against the
+    same function on CPU tensors in worker processes."""
+    for k in [k for k in os.environ if k.startswith("CCPHYLO_TORCH_")]:
+        del os.environ[k]  # the defaults: the card
+    out = res["sharded"] = {}
+    rank, world = multihost.row_axis()
+    backend = torch.distributed.get_backend()
+    assert (rank, world, backend) == (0, 1, "nccl"), (rank, world, backend)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    if flat is None:  # run alone: the main path's model, its own seed
+        flat = snp_flat(dev, g, N_DIST, L_DIST)
+    n = N_DIST
+    Dn = te.square_matrix(flat, n, 0.0)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(2, mp_context=ctx) as pool:
+        cpu = {m: pool.submit(cpu_join_records, Dn, n, m)
+               for m in ("nj", "upgma")}
+
+        # the SNP Gram at the main path's size: sample rows over ranks
+        seqs, shared_inc, _ = outbreak(dev, g, N_DIST, L_DIST,
+                                       per_sample=False)
+        pm = pack2(shared_inc[None].to(torch.uint8))[0]
+        single, t_single = synced(lambda: snp_torch.snp_matrix(seqs, pm))
+        snp_torch.sharded_snp_matrix(seqs[:256], pm)  # warm-up
+        build.reset_launches()
+        D, t_sh = synced(lambda: snp_torch.sharded_snp_matrix(seqs, pm))
+        res["sharded_launches"] = dict(build.launches)
+        assert build.launches["snp_expand_shared"] > 0
+        assert torch.equal(D, single), "sharded_snp_matrix differs"
+        pairs = n * (n - 1) / 2
+        out["snp"] = {"n": n, "L": L_DIST, "s": t_sh, "snp_matrix_s": t_single,
+                      "snp_expand_shared_launches":
+                          build.launches["snp_expand_shared"]}
+        log(f"sharded_snp_matrix n={n} L={L_DIST} world 1 (NCCL): "
+            f"{t_sh:.3f} s = {pairs / t_sh:,.0f} sample-pairs/s, "
+            f"{build.launches['snp_expand_shared']} snp_expand_shared "
+            f"launches; bit-equal to snp_matrix ({t_single:.3f} s)")
+        del seqs, D, single
+
+        # sharded DNJ against the float64 engine on an SNP matrix; the
+        # float64 run reads its bits in use every 1024 joins
+        nd = N_SHARDED
+        dflat = snp_flat(dev, g, nd, L_SCALE)
+        Dd = te.square_matrix(dflat, nd)
+        recs, t_sh = synced(lambda: sd.sharded_dnj_records(Dd, nd,
+                                                           torch.float64))
+        stats = sd.sharded_dnj_records.last
+        st, rng = exact_range(dflat, nd, dev, every=2048)
+        t_f64 = rng["run_s"]
+        T = nd - 2
+        ref = [st["I"], st["J"], st["LI"], st["LJ"], float(st["D"][1, 0])]
+        for name, a, b in zip(("I", "J"), recs, ref):
+            np.testing.assert_array_equal(a[:T], b[:T], err_msg=name)
+        # limbs and the last distance: this matrix leaves float64's exact
+        # range late in the run (the states read show the bits), and
+        # beyond it a sum on the card depends on its order (CUDA's
+        # cumsum is parallel, the two engines' vectors are not as long):
+        # within 1e-12
+        rel = sum_diff([recs[2][:T], recs[3][:T], recs[4]],
+                       [ref[2][:T], ref[3][:T], ref[4]])
+        assert rel <= 1e-12, (rel, rng)
+        out["dnj"] = dict(stats, n=nd, s=t_sh, joins_per_s=T / t_sh,
+                          float64_engine_s=t_f64,
+                          float64_engine_joins_per_s=T / t_f64,
+                          limbs_max_rel_diff=rel, exact_range=rng)
+        log(f"sharded DNJ n={nd} float64 world 1 (NCCL): {t_sh:.1f} s, "
+            f"{T / t_sh:,.1f} joins/s, {stats['passes'] / T:.3f} passes, "
+            f"{stats['host_reads'] / T:.3f} host reads and "
+            f"{stats['collectives'] / T:.3f} collectives per join; the "
+            f"float64 engine {t_f64:.1f} s, {T / t_f64:,.1f} joins/s: picks "
+            f"bit-equal, limbs and last distance within {rel:.3e}; "
+            f"its cells reach {rng['fraction_bits']} fractional bits, a row "
+            f"sum {rng['sum_bits']} bits, {rng['inexact_sums']} sums not "
+            f"exact in the {rng['states_read']} states read")
+        del Dd, st
+
+        # nj and upgma: the card against CPU tensors.  Picks and
+        # survivors bit-equal; the limbs and the last distance read row
+        # sums, which on this matrix leave float64's exact range (each
+        # join halves a sum of cells), so a parallel sum on the card may
+        # differ from the CPU's in the last bit: within 1e-12
+        for method in ("nj", "upgma"):
+            got, t = synced(lambda: snj.sharded_join_records(
+                Dn, n, method, torch.float64))
+            want = cpu[method].result()
+            for k in (0, 1, 4, 5):  # I, J, a, b
+                np.testing.assert_array_equal(got[k], want[k])
+            rel = sum_diff([got[2], got[3], got[6]],
+                           [want[2], want[3], want[6]])
+            differ = int((got[2] != want[2]).sum() + (got[3] != want[3]).sum())
+            assert rel <= 1e-12, (method, rel)
+            out[method] = {"n": n, "s": t, "joins_per_s": (n - 2) / t,
+                           "limbs_differing": differ, "max_diff": rel}
+            log(f"sharded_join_records -m {method} n={n} world 1 (NCCL): "
+                f"{t:.2f} s, {(n - 2) / t:,.1f} joins/s; picks and survivors "
+                f"equal the same function on CPU tensors (gloo), {differ} of "
+                f"{2 * (n - 2)} limbs differ, by at most {rel:.3e}")
 
 
 def phase_profile(dev, res):
@@ -1334,7 +1607,7 @@ def phase_profile(dev, res):
 
 
 # ---------------------------------------------------------------------
-# phase 8: the CLI on the card against the CLI on the host code
+# phase 9: the CLI on the card against the CLI on the host code
 
 
 def phase_cli(res):
@@ -1400,26 +1673,34 @@ def phase_cli(res):
         with open(phy, "wb") as fh:
             fh.write(out["-f 19"][0])
         # -m dnj -b: the packed engine; -m nj, -m dnj: the float64 device
-        # engines (an integer matrix, no variable set)
+        # engines (an integer matrix, no variable set); -m dnj under
+        # CCPHYLO_TORCH_ENGINE=sharded (float32, as in the reference),
+        # against the same command on CPU tensors
         jobs = {}
         for targs in (["-m", "dnj", "-b"], ["-m", "nj"], ["-m", "dnj"]):
             args = ["tree"] + targs + ["-i", phy]
             jobs[" ".join(targs)] = (args, base)
             jobs[" ".join(targs) + " host"] = (args, host_env)
+        args = ["tree", "-m", "dnj", "-i", phy]
+        jobs["sharded"] = (args, dict(base, CCPHYLO_TORCH_ENGINE="sharded"))
+        jobs["sharded host"] = (args, dict(base, CCPHYLO_TORCH_ENGINE="sharded",
+                                           CCPHYLO_TORCH_DEVICE="cpu"))
         out = run_all(jobs, d)
-        for key in ("-m dnj -b", "-m nj", "-m dnj"):
+        for key in ("-m dnj -b", "-m nj", "-m dnj", "sharded"):
             assert out[key][0] == out[key + " host"][0], key
             assert out[key][0].endswith(b";\n")
     res["cli_mat_cos_device_max_rel"] = worst
     log("CLI dist -f 17 / -f 19, tree -m dnj -b, tree -m nj and tree -m "
-        "dnj on the card equal the host code's bytes; dist on .mat.gz: "
+        "dnj on the card equal the host code's bytes, tree -m dnj under "
+        "CCPHYLO_TORCH_ENGINE=sharded (NCCL) the same on CPU tensors "
+        "(gloo); dist on .mat.gz: "
         "-d l1 and -d z on the card equal the host metrics' bytes, -d cos "
         "runs on the host with its note, and on the card under "
         f"CCPHYLO_TORCH_DIST=device within {worst:.1e} of the host's cells")
 
 
-PHASES = ("kernels", "main_path", "scale", "streamed", "engines", "matdist",
-          "cli", "profile")
+PHASES = ("kernels", "main_path", "scale", "streamed", "engines", "sharded",
+          "matdist", "cli", "profile")
 
 
 def main() -> int:
@@ -1450,6 +1731,7 @@ def main() -> int:
             lambda: shared.update(D8=phase_scale(dev, g, res)),
             lambda: phase_streamed(dev, g, res, shared.pop("D8", None)),
             lambda: phase_engines(dev, g, res, shared.get("flat")),
+            lambda: phase_sharded(dev, res, shared.get("flat")),
             lambda: phase_matdist(dev, res),
             lambda: phase_cli(res), lambda: phase_profile(dev, res))):
         if name in only or (not only and name != "profile"):

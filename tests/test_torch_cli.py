@@ -5,7 +5,8 @@ so the plain versions) and on the host numpy kernels
 (CCPHYLO_TORCH_DIST=host); `tree` on every route of
 CCPHYLO_TORCH_ENGINE: unset (-m dnj -b on the packed engine, integer
 matrices of every method and -m dnj -s on the float64 device engines,
-the rest on the host), device, device64, packed and exact.
+the rest on the host), device, device64, packed (and its alias
+packed64), sharded (a gloo group of one rank) and exact.
 Also: the port imports no jax and nothing of the JAX package, runs on
 the card unless asked for the CPU (and raises without a card), prints
 the reference's version and help, and refuses what is not ported."""
@@ -338,14 +339,87 @@ def test_tree_missing_cells_go_to_the_host_engine(tmp_path):
         assert ours == ref and ours.endswith(b";\n")
 
 
-@pytest.mark.parametrize("engine", ["sharded", "nonsense"])
+@pytest.mark.parametrize("engine", ["packed32", "nonsense"])
 def test_unported_engine_is_an_argument_error(phy, tmp_path, engine):
+    """A value of CCPHYLO_TORCH_ENGINE that names no engine is an
+    argument error (the reference runs its host engine quietly)."""
     res = _run("ccphylo_tpu_torch", ["tree", "-m", "dnj", "-i", str(phy)],
                tmp_path, {"CCPHYLO_TORCH_ENGINE": engine}, check=False)
     assert res.returncode == 1 and res.stdout == b""
     assert b"CCPHYLO_TORCH_ENGINE" in res.stderr
-    assert (b"ROADMAP.md" in res.stderr) == (engine != "nonsense")
+    assert b"sharded" in res.stderr  # the list of engines
     assert b"Traceback" not in res.stderr
+
+
+@pytest.fixture(scope="module")
+def int_phy(tmp_path_factory):
+    """A seeded integer matrix of 30 taxa, complete."""
+    import numpy as np
+    n = 30
+    rng = np.random.RandomState(14)
+    rows = [b"%10d" % n]
+    for i in range(n):
+        cells = [b"%d" % v for v in rng.randint(1, 60, i)]
+        rows.append(b"\t".join([b"t%02d" % i] + cells))
+    f = tmp_path_factory.mktemp("iphy_torch") / "i.phy"
+    f.write_bytes(b"\n".join(rows) + b"\n")
+    return f
+
+
+@pytest.mark.parametrize("method", ["dnj", "nj", "upgma"])
+def test_tree_sharded_matches_reference(int_phy, tmp_path, method):
+    """CCPHYLO_TORCH_ENGINE=sharded on CPU tensors (a gloo group of one
+    rank): the bytes of CCPHYLO_TPU_ENGINE=sharded, float32 sums of small
+    integers being exact; no note."""
+    args = ["tree", "-m", method, "-i", str(int_phy)]
+    ref = _run("ccphylo_tpu", args, tmp_path,
+               {"CCPHYLO_TPU_ENGINE": "sharded"}).stdout
+    res = _run("ccphylo_tpu_torch", args, tmp_path,
+               {"CCPHYLO_TORCH_ENGINE": "sharded"})
+    assert res.stdout == ref and ref.endswith(b";\n")
+    assert b"# ccphylo_tpu_torch" not in res.stderr
+
+
+@pytest.mark.parametrize("method,fixture", [("nj", "miss_phy"),
+                                            ("upgma", "miss_phy"),
+                                            ("hnj", "int_phy")])
+def test_tree_sharded_host_stand_ins(request, tmp_path, method, fixture):
+    """Under CCPHYLO_TORCH_ENGINE=sharded, nj / upgma with missing cells
+    and the methods the sharded engines lack run the host engine, as the
+    reference routes them, and say so in one stderr line."""
+    args = ["tree", "-m", method, "-i", str(request.getfixturevalue(fixture))]
+    ref = _run("ccphylo_tpu", args, tmp_path,
+               {"CCPHYLO_TPU_ENGINE": "sharded"}).stdout
+    assert ref == _run("ccphylo_tpu", args, tmp_path).stdout
+    res = _run("ccphylo_tpu_torch", args, tmp_path,
+               {"CCPHYLO_TORCH_ENGINE": "sharded",
+                "CCPHYLO_TORCH_DEVICE": "cuda"})  # never reached
+    assert res.stdout == ref and ref.endswith(b";\n")
+    notes = [ln for ln in res.stderr.splitlines()
+             if ln.startswith(b"# ccphylo_tpu_torch")]
+    assert len(notes) == 1 and b"CCPHYLO_TORCH_ENGINE=sharded" in notes[0]
+
+
+def test_tree_sharded_engine_that_ran(int_phy, miss_phy):
+    """_dispatch_build.last_engine names the sharded engine that ran, in
+    one process for all three (one process group)."""
+    code = (
+        "import sys\n"
+        "from ccphylo_tpu_torch.cli import tree_cmd\n"
+        "from ccphylo_tpu_torch.cli.main import main\n"
+        "for f, m in [(sys.argv[1], 'dnj'), (sys.argv[1], 'nj'),\n"
+        "             (sys.argv[1], 'upgma'), (sys.argv[2], 'dnj'),\n"
+        "             (sys.argv[2], 'nj')]:\n"
+        "    assert main(['tree', '-m', m, '-i', f, '-o', '/dev/null']) == 0\n"
+        "    print(tree_cmd._dispatch_build.last_engine)\n")
+    env = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+           "CCPHYLO_TORCH_DEVICE": "cpu", "CCPHYLO_TORCH_ENGINE": "sharded"}
+    res = subprocess.run([sys.executable, "-c", code, str(int_phy),
+                          str(miss_phy)], capture_output=True, timeout=600,
+                         env=env)
+    assert res.returncode == 0, res.stderr.decode(errors="replace")
+    assert res.stdout.split() == [b"sharded/dnj", b"sharded/nj",
+                                  b"sharded/upgma", b"sharded/dnj", b"exact"]
 
 
 @pytest.mark.parametrize("method", ["dnj", "upgma", "ff", "cf", "hnj", "nj",
@@ -393,7 +467,8 @@ def test_tree_card_route_without_card_raises(phy, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     for targs, engine in ((["-m", "nj"], None), (["-m", "dnj", "-s"], None),
-                          (["-m", "upgma"], "device")):
+                          (["-m", "upgma"], "device"),
+                          (["-m", "dnj"], "sharded")):
         res = _run("ccphylo_tpu_torch", ["tree"] + targs + ["-i", str(phy)],
                    tmp_path, {"CCPHYLO_TORCH_DEVICE": None,
                               "CCPHYLO_TORCH_ENGINE": engine}, check=False)
@@ -536,7 +611,20 @@ _FLT = [3.5, 5.0, 7.0, 2.0, 4.0, 6.0]
     ("device64", _FLT, "mn", "d", 1.0, "hclust/float64"),
     ("device64", _FLT, "hnj", "d", 1.0, "exact"),
     ("device64", _INT, "hnj", "d", 1.0, "hclust/float64"),
-    ("device64", _INT, "upgma", "s", 1.0, "exact")])
+    ("device64", _INT, "upgma", "s", 1.0, "exact"),
+    ("packed64", _INT, "dnj", "b", 1.0, "packed"),
+    ("packed64", _MISS, "dnj", "b", 1.0, "exact"),
+    ("packed64", _INT, "dnj", "d", 1.0, "exact"),
+    ("sharded", _INT, "dnj", "d", 1.0, "sharded/dnj"),
+    ("sharded", _MISS, "dnj", "d", 1.0, "sharded/dnj"),
+    ("sharded", _FLT, "dnj", "d", 1.0, "sharded/dnj"),
+    ("sharded", _INT, "nj", "d", 1.0, "sharded/nj"),
+    ("sharded", _FLT, "upgma", "d", 1.0, "sharded/upgma"),
+    ("sharded", _MISS, "nj", "d", 1.0, "exact"),
+    ("sharded", _MISS, "upgma", "d", 1.0, "exact"),
+    ("sharded", _INT, "hnj", "d", 1.0, "exact"),
+    ("sharded", _INT, "dnj", "b", 1.0, "exact"),
+    ("sharded", _INT, "nj", "f", 1.0, "exact")])
 def test_route(monkeypatch, engine, flat, method, dtype, bs, route):
     """The routing table of tree_cmd._route, and which routes come with
     a note for stderr: the host engine standing in for a device engine
@@ -550,8 +638,8 @@ def test_route(monkeypatch, engine, flat, method, dtype, bs, route):
         monkeypatch.setenv("CCPHYLO_TORCH_ENGINE", engine)
     *parts, note = tree_cmd._route(np.array(flat), method, dtype, bs)
     assert tree_cmd._engine_name(*parts) == route
-    noted = dtype == "d" and route == "exact" and (
-        flat is _FLT or (flat is _MISS and engine is None))
+    noted = route == "exact" and (engine == "sharded" or dtype == "d" and (
+        flat is _FLT or (flat is _MISS and engine is None)))
     assert note.count("\n") == int(noted)
     assert ("forces the card" in note) == (noted and engine is None)
 
@@ -571,6 +659,8 @@ def test_port_imports_no_jax(kma_dir, tmp_path):
         f"{str(tmp_path / 'd.phy')!r}, '-o', "
         f"{str(tmp_path / 'u.nwck')!r}]) == 0\n"
         "import ccphylo_tpu_torch.interop, ccphylo_tpu_torch.ops.build\n"
+        "import ccphylo_tpu_torch.parallel.sharded_dnj\n"
+        "import ccphylo_tpu_torch.parallel.sharded_nj\n"
         "import ccphylo_tpu_torch.utils.timing\n"
         "import ccphylo_tpu_torch.utils.checkpoint\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -602,7 +692,8 @@ def test_port_sources_import_no_jax_and_no_jax_package():
         + [REPO / "chip_smoke.py"]
     assert len(files) > 27
     assert {"torch_engine.py", "hclust_engine.py", "matdist_torch.py",
-            "streamed_engine.py"} <= {f.name for f in files}
+            "streamed_engine.py", "multihost.py", "sharded_nj.py",
+            "sharded_dnj.py"} <= {f.name for f in files}
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "ccphylo_tpu"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
@@ -644,3 +735,40 @@ def test_unported_subcommand_is_refused(tmp_path, cmd):
     assert res.returncode != 0 and res.stdout == b""
     assert res.stderr.count(b"\n") == 1
     assert cmd.encode() in res.stderr and b"not ported" in res.stderr
+
+
+@pytest.fixture(scope="module")
+def caterpillar_phy(tmp_path_factory):
+    """D_ij = |i - j| plus integer noise in [0, 2], 64 taxa: joins along
+    a chain, so the fractional bits of the cells pile up with depth."""
+    import numpy as np
+    n = 64
+    rng = np.random.RandomState(7)
+    rows = [b"%10d" % n]
+    for i in range(n):
+        cells = [b"%d" % (i - j + rng.randint(0, 3)) for j in range(i)]
+        rows.append(b"\t".join([b"c%02d" % i] + cells))
+    f = tmp_path_factory.mktemp("cphy_torch") / "c.phy"
+    f.write_bytes(b"\n".join(rows) + b"\n")
+    return f
+
+
+@pytest.mark.parametrize("method", ["dnj", "upgma"])
+def test_tree_default_route_leaves_inexact_sums_to_the_host(
+        caterpillar_phy, tmp_path, method):
+    """A complete integer matrix goes to the float64 device engines by
+    default, which track float64's exact range: dnj's row sums leave it
+    on a caterpillar, and the run is handed to the host engine with one
+    note; upgma stays on the device.  The bytes are the reference's
+    either way; device64 keeps the card without a note."""
+    args = ["tree", "-m", method, "-i", str(caterpillar_phy)]
+    ref = _run("ccphylo_tpu", args, tmp_path).stdout
+    res = _run("ccphylo_tpu_torch", args, tmp_path)
+    assert res.stdout == ref and ref.endswith(b";\n")
+    notes = [ln for ln in res.stderr.splitlines()
+             if ln.startswith(b"# ccphylo_tpu_torch")]
+    assert len(notes) == (method == "dnj")
+    assert all(b"exact range" in ln and b"device64" in ln for ln in notes)
+    res = _run("ccphylo_tpu_torch", args, tmp_path,
+               {"CCPHYLO_TORCH_ENGINE": "device64"})
+    assert b"# ccphylo_tpu_torch" not in res.stderr

@@ -394,3 +394,51 @@ def test_non_integer_float64(n=150):
     host = port_build_tree(flat.copy(), n, names(n, PortName), "dnj")
     assert tree.count(b",") == host.count(b",") == n - 1
     assert len(tree) == len(host)
+
+
+def _caterpillar(n, seed=7):
+    """D_ij = |i - j| plus integer noise in [0, 2]: joins along a chain,
+    whose fractional bits pile up with depth."""
+    rng = np.random.RandomState(seed)
+    i, j = np.tril_indices(n, -1)
+    return (i - j + rng.randint(0, 3, len(i))).astype(np.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sums_exact(dtype):
+    """sums_exact holds where every partial sum in any order is exact:
+    entries on a grid 2^-k whose sum of |x| leaves k fractional bits in
+    the p-bit mantissa field, one bit to spare; it fails just past
+    that."""
+    p = 52 if dtype == torch.float64 else 23
+    ok = lambda v: bool(te.sums_exact(torch.tensor(v, dtype=dtype)))
+    assert ok([1.0, 2.0, 3.5, -0.25, 0.0])
+    assert ok([2.0 ** (p - 1), 1.0])        # 2^(p-1) + 1: p bits
+    assert not ok([2.0 ** p, 1.0])          # 2^p + 1: the spare bit too
+    assert ok([0.5 ** (p - 2), 1.0])        # p - 2 fractional bits
+    assert not ok([0.5 ** p, 1.0])
+    x = torch.tensor([[1.0, 0.5 ** (p - 1)], [3.0, 4.0]], dtype=dtype)
+    assert te.sums_exact(x, dim=1).tolist() == [False, True]
+
+
+def test_exact_range_tracking_on_a_caterpillar(n=64):
+    """With exact_sums the float64 engines raise InexactSums at the
+    first join that could read a row sum that is not exact: dnj on a
+    caterpillar does (the cells reach 52 fractional bits), upgma (an
+    average per join) stays inside the range and keeps its records."""
+    from ccphylo_tpu_torch.tree import hclust_engine as he
+    flat = _caterpillar(n)
+    with pytest.raises(te.InexactSums) as e:
+        te.dnj_joins(torch.from_numpy(te.square_matrix(flat, n)), n,
+                     exact_sums=True)
+    assert 0 < e.value.join < n - 2
+    D = torch.from_numpy(te.square_matrix(flat, n))
+    tracked = he.hclust_joins(D.clone(), n, "upgma", exact_sums=True)
+    plain = he.hclust_joins(D, n, "upgma")
+    for a, b in zip(tracked[:5], plain[:5]):
+        np.testing.assert_array_equal(a, b)
+    # an integer SNP-like matrix stays exact all the way
+    rng = np.random.RandomState(3)
+    flat = rng.randint(0, 25, n * (n - 1) // 2).astype(np.float64)
+    te.dnj_joins(torch.from_numpy(te.square_matrix(flat, n)), n,
+                 exact_sums=True)
