@@ -26,8 +26,11 @@ ops/snp_torch.sharded_snp_matrix).
 Both run on the card unless the caller asks for the CPU
 (CCPHYLO_TORCH_DEVICE=cpu for the plain PyTorch versions,
 CCPHYLO_TORCH_DIST=host and CCPHYLO_TORCH_ENGINE=exact for the host
-numpy code).  The reference's other twelve subcommands are not ported
-yet and are refused by cli/main.py.
+numpy code).  The reference's other twelve subcommands (dbscan, union,
+merge, nwck2phy, tsv2phy, tsv2nwck, rarify, trim, phycmp, fullphy,
+makespan, seq2fasta) are host code, as in the JAX package: cli/*_cmd.py
+with their host modules io/tsv.py, io/newick_parse.py,
+io/hashmapstr.py, io/kmadb.py, ops/distcmp.py and schedule/makespan.py.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,9 @@
 """Top-level dispatch (reference main.c:99-131; counterpart of
 ccphylo_tpu/cli/main.py).
 
-Usage: ``python -m ccphylo_tpu_torch <subcommand> [options]``.  `dist`
-and `tree` are ported; the other twelve subcommands of the reference
-are named in the help text and refused with one line on stderr until
-their modules are ported (ROADMAP.md, queue A).
+Usage: ``python -m ccphylo_tpu_torch <subcommand> [options]``.  All 14
+subcommands of the reference are ported: `dist` and `tree` reach the
+card, the other twelve are host code here as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,10 +11,6 @@ from __future__ import annotations
 import sys
 
 from .. import __version__
-
-# subcommands of the reference whose modules are not ported yet
-UNPORTED = ("dbscan", "union", "merge", "nwck2phy", "tsv2phy", "tsv2nwck",
-            "rarify", "trim", "phycmp", "fullphy", "makespan", "seq2fasta")
 
 
 def _help(out) -> int:
@@ -60,10 +55,42 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "dist":
         from .dist_cmd import main_dist
         return main_dist(rest)
-    if cmd in UNPORTED:
-        print(f"ccphylo_tpu_torch: subcommand \"{cmd}\" is not ported "
-              "yet (ported: dist, tree).", file=sys.stderr)
-        return 1
+    if cmd == "dbscan":
+        from .dbscan_cmd import main_dbscan
+        return main_dbscan(rest)
+    if cmd == "union":
+        from .union_cmd import main_union
+        return main_union(rest)
+    if cmd == "merge":
+        from .merge_cmd import main_merge
+        return main_merge(rest)
+    if cmd == "nwck2phy":
+        from .nwck2phy_cmd import main_nwck2phy
+        return main_nwck2phy(rest)
+    if cmd == "tsv2phy":
+        from .tsv2phy_cmd import main_tsv2phy
+        return main_tsv2phy(rest)
+    if cmd == "tsv2nwck":
+        from .tsv2nwck_cmd import main_tsv2nwck
+        return main_tsv2nwck(rest)
+    if cmd == "rarify":
+        from .rarify_cmd import main_rarify
+        return main_rarify(rest)
+    if cmd == "trim":
+        from .trim_cmd import main_trim
+        return main_trim(rest)
+    if cmd == "phycmp":
+        from .phycmp_cmd import main_phycmp
+        return main_phycmp(rest)
+    if cmd == "fullphy":
+        from .fullphy_cmd import main_fullphy
+        return main_fullphy(rest)
+    if cmd == "makespan":
+        from .makespan_cmd import main_makespan
+        return main_makespan(rest)
+    if cmd == "seq2fasta":
+        from .seq2fasta_cmd import main_seq2fasta
+        return main_seq2fasta(rest)
 
     print(f'Unknown subcommand:\t"{cmd}"', file=sys.stderr)
     return _help(sys.stderr)

@@ -1,5 +1,5 @@
-"""Phase timing and throughput counters (counterpart of
-ccphylo_tpu/utils/timing.py).
+"""Phase timing, throughput counters and the profiler trace
+(counterpart of ccphylo_tpu/utils/timing.py).
 
 The reference's observability is two stderr timing lines around matrix
 load and tree construction (tree.c:81-109); those exact lines are
@@ -7,12 +7,15 @@ emitted unconditionally by the CLI for parity.  This module adds the
 port's own instrumentation, off by default so stdout/stderr stay
 reference-shaped:
 
-- CCPHYLO_TORCH_PROFILE=stderr (or any non-empty value) — per-phase
-  wall times + throughput counters (pairs/s, joins/s) reported to
-  stderr at process exit.
-
-The reference's profiler trace (CCPHYLO_TPU_PROFILE=<dir>) has no
-counterpart yet: a torch.profiler hook is a later item of the ROADMAP.
+- CCPHYLO_TORCH_PROFILE=stderr (or 1) — per-phase wall times +
+  throughput counters (pairs/s, joins/s) reported to stderr at process
+  exit.
+- CCPHYLO_TORCH_PROFILE=<dir> — additionally wraps the process in a
+  torch.profiler trace (CPU, and CUDA when a card is present), written
+  at exit as the Chrome trace <dir>/ccphylo_tpu_torch.<pid>.pt.trace.json
+  (viewable in Perfetto or chrome://tracing).  A profiler that cannot
+  start prints "# profiler trace unavailable: <exc>" and the run goes
+  on.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ _MODE = os.environ.get("CCPHYLO_TORCH_PROFILE", "")
 _phases: dict[str, float] = {}
 _counters: dict[str, float] = {}
 _registered = False
+_trace = None  # the running torch.profiler.profile, if any
 
 
 def enabled() -> bool:
@@ -34,6 +38,15 @@ def enabled() -> bool:
 
 
 def _report() -> None:
+    global _trace
+    if _trace is not None:
+        try:
+            _trace.stop()
+            _trace.export_chrome_trace(os.path.join(
+                _MODE, f"ccphylo_tpu_torch.{os.getpid()}.pt.trace.json"))
+        except Exception:  # noqa: BLE001 - profiling must never kill a run
+            pass
+        _trace = None
     if not _phases and not _counters:
         return
     w = sys.stderr
@@ -51,10 +64,23 @@ def _report() -> None:
 
 
 def _ensure_registered() -> None:
-    global _registered
+    global _registered, _trace
     if _registered or not _MODE:
         return
     _registered = True
+    if _MODE not in ("stderr", "1"):
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            os.makedirs(_MODE, exist_ok=True)
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            _trace = profile(activities=acts)
+            _trace.start()
+        except Exception as exc:  # noqa: BLE001
+            _trace = None
+            print(f"# profiler trace unavailable: {exc}", file=sys.stderr)
     atexit.register(_report)
 
 

@@ -99,7 +99,15 @@ exits non-zero, no exception is caught:
    dist on the
    .mat.gz files: -d l1, z (the card) byte-equal to the host metrics,
    -d cos (the host, with its stderr line) and -d cos under
-   CCPHYLO_TORCH_DIST=device (the card, cells within 1e-9).
+   CCPHYLO_TORCH_DIST=device (the card, cells within 1e-9).  Then the
+   twelve host subcommands, side by side, each exiting 0: phycmp of the
+   card's dist matrix against the host route's, fullphy and dbscan of
+   both matrices and nwck2phy of both tree -m dnj -b Newicks byte-equal
+   to each other, merge, tsv2phy, tsv2nwck, makespan, union, rarify,
+   trim and seq2fasta on small seeded inputs; and dist -f 17 into
+   tree -m dnj -b under CCPHYLO_TORCH_PROFILE=<dir>: each writes a
+   torch.profiler Chrome trace whose `kernel` events name the kernel
+   it runs (expand_shared_kernel, dnj_scan_kernel).
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
 named phases (kernels, main_path, scale, streamed, engines, sharded,
@@ -1610,6 +1618,151 @@ def phase_profile(dev, res):
 # phase 9: the CLI on the card against the CLI on the host code
 
 
+def cli_run(args, env, cwd):
+    p = subprocess.run([sys.executable, "-m", "ccphylo_tpu_torch"]
+                       + args, env=env, cwd=cwd, capture_output=True,
+                       timeout=300)
+    assert p.returncode == 0, (args, p.stderr.decode(errors="replace"))
+    return p.stdout, p.stderr
+
+
+def cli_run_all(jobs, cwd):
+    """{key: (args, env)} -> {key: (stdout, stderr)}; the processes
+    run side by side (each takes seconds to import and reach the
+    card)."""
+    with ThreadPoolExecutor(min(len(jobs), 16)) as pool:
+        futs = {k: pool.submit(cli_run, a, e, cwd)
+                for k, (a, e) in jobs.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def write_kma_db(d, name, seqs, names):
+    """A KMA index (.length.b, .seq.b, .name): template 0 a placeholder,
+    base j of a template at bits 62-2j of its u64 words."""
+    code = {65: 0, 67: 1, 71: 2, 84: 3}
+    lengths = np.zeros(len(seqs) + 1, np.int32)
+    with open(os.path.join(d, name + ".seq.b"), "wb") as fh:
+        for i, sq in enumerate(seqs, 1):
+            lengths[i] = len(sq)
+            w = np.zeros((len(sq) >> 5) + 1, np.uint64)
+            for j, b in enumerate(sq):
+                w[j >> 5] |= np.uint64(code[b]) << np.uint64(62 - 2 * (j & 31))
+            w.tofile(fh)
+    with open(os.path.join(d, name + ".length.b"), "wb") as fh:
+        np.int32(len(seqs) + 1).tofile(fh)
+        lengths.tofile(fh)
+    with open(os.path.join(d, name + ".name"), "wb") as fh:
+        fh.write(b"\n".join(names) + b"\n")
+
+
+def host_subcommand_inputs(d, rng):
+    """Small seeded inputs of merge, tsv2phy, tsv2nwck, makespan, union
+    and seq2fasta: a jobs table, four KMA .res files, a KMA index and a
+    tsv of rows."""
+    rows = [b"#id\tsize\tcluster\tw"]
+    for i in range(60):
+        rows.append(b"%d\t%d\t%d\t%.2f" % (i, rng.randint(1, 50),
+                                           rng.randint(0, 12),
+                                           rng.uniform(0.5, 9.0)))
+    Path(d, "jobs.tsv").write_bytes(b"\n".join(rows) + b"\n")
+    tpls = [b"tplA", b"tplB", b"tplC", b"tplD", b"tplE"]
+    head = (b"#Template\tScore\tExpected\tTemplate_length\t"
+            b"Template_Identity\tTemplate_Coverage\tQuery_Identity\t"
+            b"Query_Coverage\tDepth\tq_value\tp_value\n")
+    for s in range(4):
+        out = [head]
+        for t in tpls:
+            cov = rng.uniform(20, 100)
+            out.append(b"%s\t%d\t%d\t%d\t%.2f\t%.2f\t%.2f\t%.2f\t%.2f\t"
+                       b"%.1f\t1.0e-10\n"
+                       % (t, rng.randint(100, 10**5), rng.randint(1, 100),
+                          rng.randint(500, 5000), rng.uniform(80, 100), cov,
+                          rng.uniform(80, 100), cov, rng.uniform(0.5, 60),
+                          rng.uniform(10, 1000)))
+        Path(d, f"r{s}.res").write_bytes(b"".join(out))
+    write_kma_db(d, "db", [bytes(rng.choice(list(b"ACGT"),
+                                            rng.randint(40, 120)).tolist())
+                           for _ in tpls], tpls)
+    rows = ["\t".join(f"c{i}" for i in range(6))]
+    for _ in range(10):
+        rows.append("\t".join(f"{v:.3f}" for v in rng.rand(6) * 50))
+    Path(d, "t.tsv").write_text("\n".join(rows) + "\n")
+
+
+def cli_host_subcommands(d, env, fsas, mats, out_dist, out_tree):
+    """The twelve host subcommands, side by side: phycmp of the card's
+    dist matrix against the host route's; fullphy, dbscan and nwck2phy
+    of the card's outputs byte-equal to the same of the host route's;
+    merge, tsv2phy, tsv2nwck, makespan, union, rarify, trim and
+    seq2fasta on small seeded inputs.  Each must exit 0."""
+    t0 = time.perf_counter()
+    host_subcommand_inputs(d, np.random.RandomState(SEED))
+    for name, data in (("card.phy", out_dist[0]), ("host.phy", out_dist[1]),
+                       ("card.nwck", out_tree[0]),
+                       ("host.nwck", out_tree[1])):
+        Path(d, name).write_bytes(data)
+    Path(d, "m.phy").write_bytes(out_dist[0] + out_dist[1])
+    res4 = [f"r{s}.res" for s in range(4)]
+    jobs = {"phycmp": ["phycmp", "-i", "card.phy", "host.phy", "-f", "127"],
+            "merge": ["merge", "-i", "m.phy"],
+            "tsv2phy": ["tsv2phy", "-i", "t.tsv"],
+            "tsv2nwck": ["tsv2nwck", "-i", "t.tsv"],
+            "makespan": ["makespan", "-i", "jobs.tsv", "-l", "3"],
+            "union": ["union", "-i"] + res4,
+            "union -B": ["union", "-i"] + res4 + ["-B", "db", "-o", "u.tsv"],
+            "rarify": ["rarify", "-i", mats[0], "-A", "100000"],
+            "trim": ["trim", "-i"] + fsas + ["-r", "tpl1", "-f", "1"],
+            "seq2fasta": ["seq2fasta", "-t_db", "db"]}
+    for cmd, ext in (("fullphy", "phy"), ("dbscan", "phy"),
+                     ("nwck2phy", "nwck")):
+        for side in ("card", "host"):
+            jobs[f"{cmd} {side}"] = [cmd, "-i", f"{side}.{ext}"]
+    out = cli_run_all({k: (a, env) for k, a in jobs.items()}, d)
+    for cmd in ("fullphy", "dbscan", "nwck2phy"):
+        assert out[cmd + " card"][0] == out[cmd + " host"][0], cmd
+    assert all(out[k][0] for k in jobs if k != "union -B"), \
+        [k for k in jobs if not out[k][0]]
+    assert Path(d, "u.tsv").read_bytes()
+    names = {a[0] for a in jobs.values()}
+    assert len(names) == 12, names
+    return time.perf_counter() - t0, len(jobs)
+
+
+def cli_trace(d, env, fsas):
+    """dist -f 17 -> tree -m dnj -b on the card, each under
+    CCPHYLO_TORCH_PROFILE=<its own dir>: each writes one Chrome trace
+    that parses as JSON and whose `kernel` events name the kernel it
+    runs.  The tree command runs once more without the profiler, for
+    what the trace costs."""
+    phy = os.path.join(d, "trace.phy")
+    runs = (("dist", ["dist", "-r", "tpl1", "-f", "17", "-i"] + fsas
+             + ["-o", phy], "expand_shared_kernel"),
+            ("tree", ["tree", "-m", "dnj", "-b", "-i", phy],
+             "dnj_scan_kernel"))
+    info = {}
+    for cmd, args, want in runs:
+        prof = os.path.join(d, "prof_" + cmd)
+        (out, err), secs = synced(lambda: cli_run(
+            args, dict(env, CCPHYLO_TORCH_PROFILE=prof), d))
+        assert b"# --- ccphylo_tpu_torch profile ---" in err, err
+        assert b"profiler trace unavailable" not in err, err
+        files = list(Path(prof).glob("ccphylo_tpu_torch.*.pt.trace.json"))
+        assert len(files) == 1 and len(os.listdir(prof)) == 1, files
+        events = json.loads(files[0].read_text())["traceEvents"]
+        kernels = [e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"]
+        assert any(want in k for k in kernels), (cmd, sorted(set(kernels)))
+        info[cmd] = {"kernel_events": len(kernels),
+                     "trace_bytes": files[0].stat().st_size, "kernel": want,
+                     "launches": sum(want in k for k in kernels),
+                     "process_s": secs}
+    tree_args = runs[1][1]
+    plain, info["tree"]["process_s_untraced"] = synced(
+        lambda: cli_run(tree_args, env, d))
+    assert out == plain[0] and out.endswith(b";\n")  # out: the traced tree
+    return info
+
+
 def phase_cli(res):
     sys.path.insert(0, REPO)
     from tests.gen_kma_data import make_dataset
@@ -1620,22 +1773,6 @@ def phase_cli(res):
     # no CCPHYLO_TORCH_* variable: the card and the packed engine
     host_env = dict(base, CCPHYLO_TORCH_DIST="host",
                     CCPHYLO_TORCH_ENGINE="exact")
-
-    def run(args, env, cwd):
-        p = subprocess.run([sys.executable, "-m", "ccphylo_tpu_torch"]
-                           + args, env=env, cwd=cwd, capture_output=True,
-                           timeout=300)
-        assert p.returncode == 0, p.stderr.decode(errors="replace")
-        return p.stdout, p.stderr
-
-    def run_all(jobs, cwd):
-        """{key: (args, env)} -> {key: (stdout, stderr)}; the processes
-        run side by side (each takes seconds to import and reach the
-        card)."""
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            futs = {k: pool.submit(run, a, e, cwd)
-                    for k, (a, e) in jobs.items()}
-            return {k: f.result() for k, f in futs.items()}
 
     def cells(out):
         return [float(x) for ln in out.split(b"\n")[1:] if ln
@@ -1658,7 +1795,7 @@ def phase_cli(res):
             jobs["-d " + method] = (args, base)
             jobs["-d " + method + " host"] = (args, host_env)
         jobs["-d cos device"] = (jobs["-d cos"][0], dev_env)
-        out = run_all(jobs, d)
+        out = dist_out = cli_run_all(jobs, d)
         for key in ("-f 17", "-f 19", "-d l1", "-d z", "-d cos"):
             assert out[key][0] == out[key + " host"][0], key
             assert out[key][0].count(b"\n") == 25
@@ -1685,10 +1822,26 @@ def phase_cli(res):
         jobs["sharded"] = (args, dict(base, CCPHYLO_TORCH_ENGINE="sharded"))
         jobs["sharded host"] = (args, dict(base, CCPHYLO_TORCH_ENGINE="sharded",
                                            CCPHYLO_TORCH_DEVICE="cpu"))
-        out = run_all(jobs, d)
+        out = cli_run_all(jobs, d)
         for key in ("-m dnj -b", "-m nj", "-m dnj", "sharded"):
             assert out[key][0] == out[key + " host"][0], key
             assert out[key][0].endswith(b";\n")
+        dist_pair = (dist_out["-f 19"][0], dist_out["-f 19 host"][0])
+        tree_pair = (out["-m dnj -b"][0], out["-m dnj -b host"][0])
+        secs, nproc = cli_host_subcommands(d, base, fsas, mats, dist_pair,
+                                           tree_pair)
+        res["cli_host_subcommands_s"] = secs
+        log(f"CLI: the twelve host subcommands ({nproc} processes side by "
+            f"side) exit 0 in {secs:.2f} s; fullphy, dbscan and nwck2phy "
+            "of the card's dist matrix and tree -m dnj -b Newick equal "
+            "those of the host route's")
+        trace = res["cli_trace"] = cli_trace(d, base, fsas)
+        log("CLI trace (CCPHYLO_TORCH_PROFILE=<dir>): " + "; ".join(
+            f"{cmd}: {t['kernel_events']} kernel events, {t['launches']} "
+            f"of {t['kernel']}, {t['trace_bytes']} bytes, process "
+            f"{t['process_s']:.2f} s" for cmd, t in trace.items())
+            + "; tree without the profiler "
+            f"{trace['tree']['process_s_untraced']:.2f} s")
     res["cli_mat_cos_device_max_rel"] = worst
     log("CLI dist -f 17 / -f 19, tree -m dnj -b, tree -m nj and tree -m "
         "dnj on the card equal the host code's bytes, tree -m dnj under "

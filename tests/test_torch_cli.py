@@ -9,7 +9,10 @@ the rest on the host), device, device64, packed (and its alias
 packed64), sharded (a gloo group of one rank) and exact.
 Also: the port imports no jax and nothing of the JAX package, runs on
 the card unless asked for the CPU (and raises without a card), prints
-the reference's version and help, and refuses what is not ported."""
+the reference's version and help, gives each of the other twelve
+subcommands' help as the reference does (tests/test_torch_subcommands.py
+holds them to the reference on every option set), and writes a
+torch.profiler Chrome trace under CCPHYLO_TORCH_PROFILE=<dir>."""
 
 import ast
 import glob
@@ -19,8 +22,6 @@ import sys
 
 import pytest
 import torch
-
-from ccphylo_tpu_torch.cli.main import UNPORTED
 
 from .conftest import REPO
 from .gen_kma_data import make_dataset
@@ -646,7 +647,10 @@ def test_route(monkeypatch, engine, flat, method, dtype, bs, route):
 
 def test_port_imports_no_jax(kma_dir, tmp_path):
     """dist and tree of the port, in one process and on the default
-    route, leave jax and the JAX package unimported."""
+    route, then phycmp and makespan, leave jax and the JAX package
+    unimported."""
+    (tmp_path / "jobs.tsv").write_bytes(b"#id\tsize\tcluster\n" + b"".join(
+        b"%d\t%d\t%d\n" % (i, 7 * i % 11 + 1, i % 6) for i in range(20)))
     code = (
         "import sys\n"
         "from ccphylo_tpu_torch.cli.main import main\n"
@@ -658,6 +662,12 @@ def test_port_imports_no_jax(kma_dir, tmp_path):
         f"assert main(['tree', '-m', 'nj', '-i', "
         f"{str(tmp_path / 'd.phy')!r}, '-o', "
         f"{str(tmp_path / 'u.nwck')!r}]) == 0\n"
+        f"assert main(['phycmp', '-i', {str(tmp_path / 'd.phy')!r}, "
+        f"{str(tmp_path / 'd.phy')!r}, '-o', "
+        f"{str(tmp_path / 'c.txt')!r}]) == 0\n"
+        f"assert main(['makespan', '-i', {str(tmp_path / 'jobs.tsv')!r}, "
+        f"'-o', {str(tmp_path / 'j.tsv')!r}, '-O', "
+        f"{str(tmp_path / 'm.tsv')!r}]) == 0\n"
         "import ccphylo_tpu_torch.interop, ccphylo_tpu_torch.ops.build\n"
         "import ccphylo_tpu_torch.parallel.sharded_dnj\n"
         "import ccphylo_tpu_torch.parallel.sharded_nj\n"
@@ -673,6 +683,8 @@ def test_port_imports_no_jax(kma_dir, tmp_path):
                          cwd=kma_dir, timeout=600, env=env)
     assert res.returncode == 0, res.stderr.decode(errors="replace")
     assert (tmp_path / "t.nwck").read_bytes().endswith(b";\n")
+    assert (tmp_path / "c.txt").read_bytes()
+    assert (tmp_path / "j.tsv").read_bytes()
 
 
 def _imports(path):
@@ -693,7 +705,8 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     assert len(files) > 27
     assert {"torch_engine.py", "hclust_engine.py", "matdist_torch.py",
             "streamed_engine.py", "multihost.py", "sharded_nj.py",
-            "sharded_dnj.py"} <= {f.name for f in files}
+            "sharded_dnj.py", "makespan.py", "distcmp.py",
+            "newick_parse.py"} <= {f.name for f in files}
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "ccphylo_tpu"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
@@ -729,12 +742,45 @@ def test_version_and_help_match_reference(tmp_path):
             == (ref.returncode, ref.stdout, ref.stderr), args
 
 
-@pytest.mark.parametrize("cmd", UNPORTED)
-def test_unported_subcommand_is_refused(tmp_path, cmd):
-    res = _run("ccphylo_tpu_torch", [cmd, "-h"], tmp_path, check=False)
-    assert res.returncode != 0 and res.stdout == b""
-    assert res.stderr.count(b"\n") == 1
-    assert cmd.encode() in res.stderr and b"not ported" in res.stderr
+# the subcommands that are host code in both packages
+HOST_CMDS = ("dbscan", "union", "merge", "nwck2phy", "tsv2phy", "tsv2nwck",
+             "rarify", "trim", "phycmp", "fullphy", "makespan", "seq2fasta")
+
+
+@pytest.mark.parametrize("cmd", HOST_CMDS)
+def test_subcommand_help_matches_reference(tmp_path, cmd):
+    ours = _run("ccphylo_tpu_torch", [cmd, "-h"], tmp_path, check=False)
+    ref = _run("ccphylo_tpu", [cmd, "-h"], tmp_path, check=False)
+    assert (ours.returncode, ours.stdout, ours.stderr) \
+        == (ref.returncode, ref.stdout, ref.stderr)
+    assert ref.returncode == 0 and ref.stdout and ref.stderr == b""
+
+
+@pytest.mark.parametrize("mode", ["dir", "stderr", "1"])
+def test_profile_trace(kma_dir, tmp_path, mode):
+    """CCPHYLO_TORCH_PROFILE=<dir> writes one torch.profiler Chrome trace
+    there and still prints the phase report; stderr and 1 print the
+    report only.  The trace's CUDA kernels are checked on the card
+    (chip_smoke.py cli)."""
+    import json
+    prof = tmp_path / "prof"
+    value = str(prof) if mode == "dir" else mode
+    args = ["dist", "-r", "tpl1", "-f", "17", "-i"] + _fsas(kma_dir)
+    res = _run("ccphylo_tpu_torch", args, kma_dir,
+               {"CCPHYLO_TORCH_PROFILE": value})
+    assert res.stdout == _run("ccphylo_tpu", args, kma_dir).stdout
+    assert b"# --- ccphylo_tpu_torch profile ---" in res.stderr
+    assert b"# phase dist/pairwise_fill: " in res.stderr
+    assert b"profiler trace unavailable" not in res.stderr
+    if mode != "dir":
+        assert not prof.exists()
+        return
+    traces = list(prof.iterdir())
+    assert [t.name for t in traces] == [
+        t.name for t in prof.glob("ccphylo_tpu_torch.*.pt.trace.json")]
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
 
 
 @pytest.fixture(scope="module")

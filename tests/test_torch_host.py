@@ -1,10 +1,13 @@
 """The port's own copies of the host modules (ccphylo_tpu_torch/io, native,
-ops/pack2bit.py, ops/snp.py, ops/veccmp.py, utils/checkpoint.py,
-tree/newick_build.py, tree/exact.py, cli/args.py) against their
-originals in ccphylo_tpu, on the same numpy-seeded inputs.  The copies
+ops/pack2bit.py, ops/snp.py, ops/veccmp.py, ops/distcmp.py,
+utils/checkpoint.py, tree/newick_build.py, tree/exact.py,
+schedule/makespan.py, cli/args.py and the twelve host subcommands'
+cli/*_cmd.py) against their originals in ccphylo_tpu, on the same
+numpy-seeded inputs.  The copies
 compute what the originals compute, so every comparison is of bytes,
 integers or identical float64 values: tolerance 0."""
 
+import ast
 import gzip
 import io
 
@@ -12,6 +15,13 @@ import numpy as np
 import pytest
 
 import ccphylo_tpu.cli.args as r_args
+import ccphylo_tpu.cli.makespan_cmd as r_mkcmd
+import ccphylo_tpu.io.hashmapstr as r_hmap
+import ccphylo_tpu.io.kmadb as r_kmadb
+import ccphylo_tpu.io.newick_parse as r_nwp
+import ccphylo_tpu.io.tsv as r_tsv
+import ccphylo_tpu.ops.distcmp as r_dcmp
+import ccphylo_tpu.schedule.makespan as r_mk
 import ccphylo_tpu.io.fileio as r_fileio
 import ccphylo_tpu.io.kma as r_kma
 import ccphylo_tpu.io.phylip as r_phylip
@@ -24,6 +34,13 @@ import ccphylo_tpu.tree.exact as r_exact
 import ccphylo_tpu.tree.newick_build as r_nwk
 import ccphylo_tpu.utils.checkpoint as r_ckpt
 import ccphylo_tpu_torch.cli.args as p_args
+import ccphylo_tpu_torch.cli.makespan_cmd as p_mkcmd
+import ccphylo_tpu_torch.io.hashmapstr as p_hmap
+import ccphylo_tpu_torch.io.kmadb as p_kmadb
+import ccphylo_tpu_torch.io.newick_parse as p_nwp
+import ccphylo_tpu_torch.io.tsv as p_tsv
+import ccphylo_tpu_torch.ops.distcmp as p_dcmp
+import ccphylo_tpu_torch.schedule.makespan as p_mk
 import ccphylo_tpu_torch.io.fileio as p_fileio
 import ccphylo_tpu_torch.io.kma as p_kma
 import ccphylo_tpu_torch.io.phylip as p_phylip
@@ -36,7 +53,9 @@ import ccphylo_tpu_torch.tree.exact as p_exact
 import ccphylo_tpu_torch.tree.newick_build as p_nwk
 import ccphylo_tpu_torch.utils.checkpoint as p_ckpt
 
+from .conftest import REPO
 from .gen_kma_data import make_dataset
+from .test_sched_misc_parity import _write_kma_db
 
 
 def _same(a, b):
@@ -451,4 +470,201 @@ def test_args(capsys):
             a.next_value("i")
         got += [exc.value.code, capsys.readouterr().err]
         outs.append(got)
+    _same(*outs)
+
+
+# ---------------------------------------------------------------------
+# the host subcommands' modules: copies that differ only in docstrings
+
+_COPIES = ["io/tsv.py", "io/newick_parse.py", "io/hashmapstr.py",
+           "io/kmadb.py", "ops/distcmp.py", "schedule/makespan.py"] + [
+    f"cli/{c}_cmd.py" for c in (
+        "dbscan", "union", "merge", "nwck2phy", "tsv2phy", "tsv2nwck",
+        "rarify", "trim", "phycmp", "fullphy", "makespan", "seq2fasta")]
+
+
+def _body(path):
+    """The module's syntax tree without its docstring, and the docstring."""
+    tree = ast.parse(path.read_text())
+    doc = ast.get_docstring(tree, clean=False)
+    del tree.body[0]
+    return ast.dump(tree), doc
+
+
+@pytest.mark.parametrize("rel", _COPIES)
+def test_copy_differs_only_in_docstring(rel):
+    ours, odoc = _body(REPO / "ccphylo_tpu_torch" / rel)
+    ref, rdoc = _body(REPO / "ccphylo_tpu" / rel)
+    assert ours == ref
+    assert odoc.startswith(rdoc) and f"ccphylo_tpu/{rel}" in odoc
+
+
+# ---------------------------------------------------------------------
+# io/tsv.py, ops/distcmp.py
+
+
+def _tsv_bytes(seed):
+    rng = np.random.default_rng(seed)
+    rows = [b"\t".join(b"c%d" % i for i in range(7)), b"#x\ty\tz\tu\tv\tw\tq"]
+    for _ in range(12):
+        rows.append(b"\t".join(b"%.3f" % v for v in rng.random(7) * 40))
+    return b"\n".join(rows) + b"\n"
+
+
+@pytest.mark.parametrize("dtype", ["d", "f", "s", "b"])
+def test_load_tsv(dtype):
+    data = _tsv_bytes(1)
+    outs = []
+    for m in (p_tsv, r_tsv):
+        got = []
+        for bs in (1.0, 4.0):
+            dat = m.load_tsv(data, dtype=dtype, bytescale=bs)
+            got += [dat.mat, dat.logical(), dat.m, dat.n]
+        got.append(m.load_tsv(b"a\tb\n"))
+        with pytest.raises(SystemExit) as exc:
+            m.load_tsv(b"a\tb\n1\t2\n3\n")
+        got.append(str(exc.value))
+        outs.append(got)
+    _same(*outs)
+
+
+_DISTCMP = sorted(r_dcmp.METRICS) + ["l3", "l0.5", "l1.5", "lx", "q"]
+
+
+@pytest.mark.parametrize("metric", _DISTCMP)
+def test_distcmp(metric):
+    data = _tsv_bytes(_DISTCMP.index(metric) + 2)
+    outs = []
+    for m, t in ((p_dcmp, p_tsv), (r_dcmp, r_tsv)):
+        fn = m.get_distcmp(metric)
+        got = [fn is None]
+        for dtype in ("d", "f", "s", "b") if fn is not None else ():
+            dat = t.load_tsv(data, dtype=dtype, bytescale=8.0)
+            got += [fn(dat.mat[i], dat.mat[j], dtype, 8.0)
+                    for i in range(dat.m) for j in range(i)]
+        outs.append(got)
+    assert outs[0][0] == (metric in ("lx", "q"))
+    _same(*outs)
+
+
+# ---------------------------------------------------------------------
+# io/newick_parse.py
+
+_NWCK = (b"(A:0.1,(B:0.2,C:0.3):0.05,D:0.4);\n>t2(X:1,Y:2);\n"
+         b"((aa:1.500,bb:2.500):0.500,(cc:3.000,(dd:1.000,ee:0.250):0.125)"
+         b":2.000,ff:7.000);\n"
+         b"h3(((pp:1.0,qq:2.0):3.0,rr:4.0):-1.0,(ss:5.0,tt:6.0):7.0);\n")
+
+
+def _split_all(m, node):
+    """Split the tree into its n nodes in nwck2phy's order
+    (cli/nwck2phy_cmd.py:newick_to_matrix)."""
+    n = m.get_size_nwck(node)
+    names, out, org = [node], [], 0
+    while len(names) != n:
+        got = m.split_nwck(names[org])
+        if got is None:
+            org += 1
+            continue
+        names.append(got[0])
+        out.append((org, got[1], got[2]))
+    return out + [(nd.s, nd.len) for nd in names]
+
+
+def test_newick_parse():
+    outs = []
+    for m in (p_nwp, r_nwp):
+        got = []
+        for header, node in m.iter_nwck(_NWCK):
+            got += [header, node.s, node.len, m.get_size_nwck(node),
+                    _split_all(m, node)]
+        outs.append(got)
+    assert len(outs[0]) == 4 * 5
+    _same(*outs)
+
+
+# ---------------------------------------------------------------------
+# io/hashmapstr.py
+
+
+def test_hashmapstr():
+    rng = np.random.default_rng(5)
+    keys = [b"tpl%d" % k for k in rng.integers(0, 400, 1500)]
+    gone = [b"tpl%d" % k for k in rng.integers(0, 450, 100)]
+    outs = []
+    for m in (p_hmap, r_hmap):
+        h = m.HashMapStr()
+        got = [h.add(k, i) for i, k in enumerate(keys)]
+        got += [h.mask, h.n, list(h.items_in_print_order())]
+        got += [h.pop(k) for k in gone]
+        got += [h.n, list(h.items_in_print_order()),
+                m.djb2(b"tplD gene1"), m.minimal_standard(12345)]
+        outs.append(got)
+    assert outs[0][1500] > 127  # the table grew
+    _same(*outs)
+
+
+# ---------------------------------------------------------------------
+# io/kmadb.py
+
+
+def test_kmadb(tmp_path):
+    rng = np.random.RandomState(9)
+    names = [b"t%d" % i for i in range(6)]
+    seqs = [bytes(rng.choice(list(b"ACGT"), int(n)).tolist())
+            for n in rng.randint(1, 150, len(names))]
+    _write_kma_db(tmp_path, "db", seqs, names)
+    db = str(tmp_path / "db")
+    words = rng.randint(0, 2 ** 63, 8, dtype=np.int64).astype(np.uint64)
+    outs = []
+    for m in (p_kmadb, r_kmadb):
+        got = [m.unpack_seq(words, n) for n in (0, 1, 31, 32, 33, 256)]
+        got += [m.get_lengths(db), m.read_names(db)]
+        got += [list(m.iter_fastas(db, sl))
+                for sl in (None, [2, 4], [1], [0, 6, 9])]
+        outs.append(got)
+    assert [s for _, s in outs[0][8]] == seqs
+    _same(*outs)
+
+
+# ---------------------------------------------------------------------
+# schedule/makespan.py
+
+
+def _jobs_tsv():
+    rng = np.random.RandomState(11)
+    rows = [b"#id\tsize\tcluster\tw\tcls"]
+    for i in range(60):
+        rows.append(b"%d\t%d\t%d\t%.2f\t%d"
+                    % (i, rng.randint(1, 50), rng.randint(0, 12),
+                       rng.uniform(0.5, 9.0), rng.randint(0, 3)))
+    return b"\n".join(rows) + b"\n"
+
+
+def _schedule(mk, cmd, method, tabu, mv_cols, loads, capsys):
+    data = _jobs_tsv()
+    if mv_cols:
+        jobs, n, mv = cmd.load_mv_jobs(data, b"\t", 3, mv_cols)
+    else:
+        (jobs, n), mv = cmd.load_jobs(data, b"\t", 3), 0
+    mk.apply_weight(jobs, n, "log", 2.0, mv)
+    m = len(loads) if loads else 3
+    machines = mk.init_machines(m, n, mv, jobs, loads)
+    M = mk.run_method(method, machines, jobs, m, n, mk.Methods(mv > 1))
+    got = [mk.trade(M, tabu, mv > 1) if tabu else None]
+    mk.print_stats(M)
+    out, mout = io.BytesIO(), io.BytesIO()
+    mk.print_makespan(M, out, mout)
+    return got + [out.getvalue(), mout.getvalue(), capsys.readouterr()]
+
+
+@pytest.mark.parametrize("mv_cols", [None, [4, 5]])
+@pytest.mark.parametrize("tabu", [None, "BB", "DBEB"])
+@pytest.mark.parametrize("method", ["DBF", "DFF", "DBE", "DFE"])
+def test_makespan_run_method(method, tabu, mv_cols, capsys):
+    loads = None if mv_cols else [2.0, 1.0, 1.5]
+    outs = [_schedule(mk, cmd, method, tabu, mv_cols, loads, capsys)
+            for mk, cmd in ((p_mk, p_mkcmd), (r_mk, r_mkcmd))]
+    assert outs[0][1].count(b"\n") == 1 + len(set(
+        ln.split(b"\t")[2] for ln in _jobs_tsv().split(b"\n")[1:-1]))
     _same(*outs)
