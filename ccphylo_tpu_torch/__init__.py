@@ -9,19 +9,24 @@ native/, ops/pack2bit.py, ops/snp.py, ops/veccmp.py, tree/exact.py,
 tree/newick_build.py, utils/, cli/) are its own copies, under the same
 names and at the same places as in the reference.
 
-Ported so far, the main path:
+The main path:
 - `dist` on 2-bit packed alignments -> all-pairs SNP matrix
   (ops/snp_torch.py; CUDA expansion kernels csrc/snp_expand.cu);
 - `tree -m dnj -b` on the exact-int32 packed u8 engine
   (tree/packed_engine.py; CUDA batch-scan kernels csrc/dnj_scan.cu and
-  csrc/qrow_mins.cu), every other method and dtype on the host exact
-  engine (tree/exact.py);
-and beside it the float and quantized device engines of every tree
-method (tree/torch_engine.py, tree/hclust_engine.py), `dist` on `.mat`
-count matrices (ops/matdist_torch.py), the row-cache DNJ engine
-(tree/streamed_engine.py) and the row-block-sharded engines over
+  csrc/qrow_mins.cu).
+By default `tree` sends every complete matrix that a device engine
+computes exactly to the card (cli/tree_cmd.py::_route): the packed
+engine for `-m dnj -b`, the float64 engines of all seven methods
+(tree/torch_engine.py, tree/hclust_engine.py) for integer cells, u16
+cells for `-m dnj -s` with a power-of-two ByteScale; everything else
+runs on the host exact engine (tree/exact.py).  Beside them: `dist` on
+`.mat` count matrices (ops/matdist_torch.py), the row-cache DNJ engine
+(tree/streamed_engine.py), the row-block-sharded engines over
 torch.distributed (parallel/: DNJ, NJ/UPGMA, and
-ops/snp_torch.sharded_snp_matrix).
+ops/snp_torch.sharded_snp_matrix), and the compile check and
+multi-process dry run through every device engine (dryrun.py,
+`python -m ccphylo_tpu_torch.dryrun [N]`).
 
 Both run on the card unless the caller asks for the CPU
 (CCPHYLO_TORCH_DEVICE=cpu for the plain PyTorch versions,

@@ -104,14 +104,24 @@ exits non-zero, no exception is caught:
    card's dist matrix against the host route's, fullphy and dbscan of
    both matrices and nwck2phy of both tree -m dnj -b Newicks byte-equal
    to each other, merge, tsv2phy, tsv2nwck, makespan, union, rarify,
-   trim and seq2fasta on small seeded inputs; and dist -f 17 into
-   tree -m dnj -b under CCPHYLO_TORCH_PROFILE=<dir>: each writes a
-   torch.profiler Chrome trace whose `kernel` events name the kernel
-   it runs (expand_shared_kernel, dnj_scan_kernel).
+   trim and seq2fasta on small seeded inputs; and dist -f 17 and
+   tree -m dnj -b (on the untraced dist's matrix) under
+   CCPHYLO_TORCH_PROFILE=<dir>, side by side with the same tree
+   untraced: each writes a torch.profiler Chrome trace whose `kernel`
+   events name the kernel it runs (expand_shared_kernel,
+   dnj_scan_kernel);
+10. dryrun: ccphylo_tpu_torch/dryrun.py, the compile check and
+   dry run: entry()'s SNP matrix on the card against CPU tensors; with
+   one card, dryrun_multichip(2) refused before any process starts;
+   dryrun_multichip(1) on the card (NCCL), the same on CPU tensors
+   (gloo) and `python -m ccphylo_tpu_torch.dryrun`, side by side:
+   every stage's records equal, the rank's launches of
+   snp_expand_shared, dnj_scan and qrow_mins through slots above 0,
+   each stage's seconds printed.
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
 named phases (kernels, main_path, scale, streamed, engines, sharded,
-matdist, cli, profile) and
+matdist, cli, dryrun, profile) and
 prints their results without the contract lines: for work on one
 phase.  `profile` runs only when named: 64 joins of each device engine
 at n = 2048 on the host's clock and the next 64 in a torch.profiler
@@ -141,6 +151,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ccphylo_tpu_torch import dryrun
 from ccphylo_tpu_torch.cli import dist_cmd, tree_cmd
 from ccphylo_tpu_torch.io.qseqs import Name
 from ccphylo_tpu_torch.ops import build, matdist_torch, scan, snp, snp_torch
@@ -1619,17 +1630,19 @@ def phase_profile(dev, res):
 
 
 def cli_run(args, env, cwd):
+    """(stdout, stderr, seconds) of one port command, which must exit 0."""
+    t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-m", "ccphylo_tpu_torch"]
                        + args, env=env, cwd=cwd, capture_output=True,
                        timeout=300)
     assert p.returncode == 0, (args, p.stderr.decode(errors="replace"))
-    return p.stdout, p.stderr
+    return p.stdout, p.stderr, time.perf_counter() - t0
 
 
 def cli_run_all(jobs, cwd):
-    """{key: (args, env)} -> {key: (stdout, stderr)}; the processes
-    run side by side (each takes seconds to import and reach the
-    card)."""
+    """{key: (args, env)} -> {key: (stdout, stderr, seconds)}; the
+    processes run side by side (each takes seconds to import and reach
+    the card)."""
     with ThreadPoolExecutor(min(len(jobs), 16)) as pool:
         futs = {k: pool.submit(cli_run, a, e, cwd)
                 for k, (a, e) in jobs.items()}
@@ -1728,22 +1741,29 @@ def cli_host_subcommands(d, env, fsas, mats, out_dist, out_tree):
     return time.perf_counter() - t0, len(jobs)
 
 
-def cli_trace(d, env, fsas):
-    """dist -f 17 -> tree -m dnj -b on the card, each under
-    CCPHYLO_TORCH_PROFILE=<its own dir>: each writes one Chrome trace
-    that parses as JSON and whose `kernel` events name the kernel it
-    runs.  The tree command runs once more without the profiler, for
-    what the trace costs."""
-    phy = os.path.join(d, "trace.phy")
-    runs = (("dist", ["dist", "-r", "tpl1", "-f", "17", "-i"] + fsas
-             + ["-o", phy], "expand_shared_kernel"),
-            ("tree", ["tree", "-m", "dnj", "-b", "-i", phy],
-             "dnj_scan_kernel"))
+def cli_trace(d, env, fsas, dist17):
+    """dist -f 17 and tree -m dnj -b on the card, each under
+    CCPHYLO_TORCH_PROFILE=<its own dir>, and the same tree without the
+    profiler, for what the trace costs: three processes side by side.
+    The trees read the phase's untraced dist -f 17 matrix (`dist17`),
+    which the traced dist must equal; each trace parses as JSON and its
+    `kernel` events name the kernel the command runs."""
+    phy = os.path.join(d, "d17.phy")
+    Path(phy).write_bytes(dist17)
+    tree_args = ["tree", "-m", "dnj", "-b", "-i", phy]
+    runs = {"dist": (["dist", "-r", "tpl1", "-f", "17", "-i"] + fsas,
+                     "expand_shared_kernel"),
+            "tree": (tree_args, "dnj_scan_kernel")}
+    jobs = {cmd: (args, dict(env, CCPHYLO_TORCH_PROFILE=os.path.join(
+        d, "prof_" + cmd))) for cmd, (args, _) in runs.items()}
+    jobs["tree untraced"] = (tree_args, env)
+    out = cli_run_all(jobs, d)
+    assert out["dist"][0] == dist17
+    assert out["tree"][0] == out["tree untraced"][0]
+    assert out["tree"][0].endswith(b";\n")
     info = {}
-    for cmd, args, want in runs:
-        prof = os.path.join(d, "prof_" + cmd)
-        (out, err), secs = synced(lambda: cli_run(
-            args, dict(env, CCPHYLO_TORCH_PROFILE=prof), d))
+    for cmd, (_, want) in runs.items():
+        prof, err = os.path.join(d, "prof_" + cmd), out[cmd][1]
         assert b"# --- ccphylo_tpu_torch profile ---" in err, err
         assert b"profiler trace unavailable" not in err, err
         files = list(Path(prof).glob("ccphylo_tpu_torch.*.pt.trace.json"))
@@ -1755,11 +1775,8 @@ def cli_trace(d, env, fsas):
         info[cmd] = {"kernel_events": len(kernels),
                      "trace_bytes": files[0].stat().st_size, "kernel": want,
                      "launches": sum(want in k for k in kernels),
-                     "process_s": secs}
-    tree_args = runs[1][1]
-    plain, info["tree"]["process_s_untraced"] = synced(
-        lambda: cli_run(tree_args, env, d))
-    assert out == plain[0] and out.endswith(b";\n")  # out: the traced tree
+                     "process_s": out[cmd][2]}
+    info["tree"]["process_s_untraced"] = out["tree untraced"][2]
     return info
 
 
@@ -1835,7 +1852,8 @@ def phase_cli(res):
             f"side) exit 0 in {secs:.2f} s; fullphy, dbscan and nwck2phy "
             "of the card's dist matrix and tree -m dnj -b Newick equal "
             "those of the host route's")
-        trace = res["cli_trace"] = cli_trace(d, base, fsas)
+        trace = res["cli_trace"] = cli_trace(d, base, fsas,
+                                             dist_out["-f 17"][0])
         log("CLI trace (CCPHYLO_TORCH_PROFILE=<dir>): " + "; ".join(
             f"{cmd}: {t['kernel_events']} kernel events, {t['launches']} "
             f"of {t['kernel']}, {t['trace_bytes']} bytes, process "
@@ -1852,8 +1870,76 @@ def phase_cli(res):
         f"CCPHYLO_TORCH_DIST=device within {worst:.1e} of the host's cells")
 
 
+# ---------------------------------------------------------------------
+# phase 10: the compile check and dry run (ccphylo_tpu_torch/dryrun.py)
+
+
+def phase_dryrun(dev, res):
+    """entry()'s SNP matrix on the card, bit-equal to the same function
+    on CPU tensors (the plain expansion); with one card,
+    dryrun_multichip(2) raising before it starts a process; then, side
+    by side, dryrun_multichip(1) on the card (NCCL), the same call on
+    CPU tensors (gloo) and the command line `python -m
+    ccphylo_tpu_torch.dryrun`: every stage's records of the card's run
+    equal the CPU run's, and its rank launched snp_expand_shared,
+    dnj_scan and qrow_mins through slots."""
+    out = res["dryrun"] = {"build_s": build.build_all()}
+    fn, args = dryrun.entry(dev)
+    build.reset_launches()
+    D, out["entry_s"] = synced(lambda: fn(*args))
+    assert build.launches["snp_expand_shared"] > 0, build.launches
+    assert torch.equal(D.cpu(), fn(*(a.cpu() for a in args)))
+    if torch.cuda.device_count() == 1:
+        started, popen = [], subprocess.Popen
+        subprocess.Popen = lambda *a, **k: started.append(a)
+        try:
+            dryrun.dryrun_multichip(2, device="cuda")
+        except ValueError as e:
+            out["world2_refused"] = str(e)
+        finally:
+            subprocess.Popen = popen
+        assert "world2_refused" in out and not started, started
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CCPHYLO_TPU_", "CCPHYLO_TORCH_", "JAX_"))}
+    env["PYTHONPATH"] = REPO
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        card = pool.submit(dryrun.dryrun_multichip, 1, device="cuda")
+        cpu = pool.submit(dryrun.dryrun_multichip, 1, device="cpu")
+        cli = pool.submit(subprocess.run,
+                          [sys.executable, "-m", "ccphylo_tpu_torch.dryrun"],
+                          env=env, cwd=REPO, capture_output=True,
+                          timeout=300)
+        card, cpu, cli = card.result(), cpu.result(), cli.result()
+    out["side_by_side_s"] = time.perf_counter() - t0
+    assert cli.returncode == 0, cli.stderr.decode(errors="replace")
+    out["cli"] = cli.stdout.decode().splitlines()
+    assert out["cli"][-1].startswith("dryrun_multichip(1) on cuda: "), \
+        out["cli"]
+    ours, theirs = dryrun.records(card), dryrun.records(cpu)
+    assert ours.keys() == theirs.keys()
+    differ = [k for k in ours if not np.array_equal(ours[k], theirs[k])]
+    assert not differ, differ
+    out["stage_s"] = {k: float(card["seconds/" + k]) for k in dryrun.STAGES}
+    out["stage_s_cpu"] = {k: float(cpu["seconds/" + k])
+                          for k in dryrun.STAGES}
+    out["launches"] = {k[len("launches/"):]: int(v) for k, v in card.items()
+                       if k.startswith("launches/")}
+    for k in ("snp_expand_shared", "dnj_scan", "qrow_mins_slots"):
+        assert out["launches"][k] > 0, out["launches"]
+    log(f"dry run: entry() {out['entry_s']:.4f} s, equal to its CPU "
+        f"result; dryrun_multichip(1) on the card equals it on CPU tensors "
+        f"({len(ours)} arrays); card stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in out["stage_s"].items())
+        + "; launches " + ", ".join(f"{k} {v}" for k, v in
+                                    out["launches"].items())
+        + f"; three processes side by side {out['side_by_side_s']:.1f} s"
+        + (f"; world 2 refused: {out['world2_refused']}"
+           if "world2_refused" in out else ""))
+
+
 PHASES = ("kernels", "main_path", "scale", "streamed", "engines", "sharded",
-          "matdist", "cli", "profile")
+          "matdist", "cli", "dryrun", "profile")
 
 
 def main() -> int:
@@ -1886,7 +1972,8 @@ def main() -> int:
             lambda: phase_engines(dev, g, res, shared.get("flat")),
             lambda: phase_sharded(dev, res, shared.get("flat")),
             lambda: phase_matdist(dev, res),
-            lambda: phase_cli(res), lambda: phase_profile(dev, res))):
+            lambda: phase_cli(res), lambda: phase_dryrun(dev, res),
+            lambda: phase_profile(dev, res))):
         if name in only or (not only and name != "profile"):
             t_phase = time.perf_counter()
             phase()
