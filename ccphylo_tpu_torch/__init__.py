@@ -14,7 +14,8 @@ The main path:
   (ops/snp_torch.py; CUDA expansion kernels csrc/snp_expand.cu);
 - `tree -m dnj -b` on the exact-int32 packed u8 engine
   (tree/packed_engine.py; CUDA batch-scan kernels csrc/dnj_scan.cu and
-  csrc/qrow_mins.cu).
+  csrc/qrow_mins.cu, CUDA join-body kernel csrc/dnj_join.cu: on the card
+  a join is two launches and no host read).
 By default `tree` sends every complete matrix that a device engine
 computes exactly to the card (cli/tree_cmd.py::_route): the packed
 engine for `-m dnj -b`, the float64 engines of all seven methods

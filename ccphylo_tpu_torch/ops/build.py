@@ -52,11 +52,18 @@ ENTRY_POINTS = {
         # words, sd2, n, Q, P, seed, m_t, co, K, scratch, out, stream
         "dnj_scan": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     },
+    "dnj_join": {
+        # words, n, sd2, Q, P, seed, out, I, J, DIJ2, SDI2, SDJ2, stats,
+        # t, m_t, B, scratch, stream
+        "dnj_join": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _P, _P],
+    },
 }
 # source stem -> {C function that launches nothing: argtypes}; each
 # returns an int of its own meaning (see `query`)
 QUERIES = {
     "dnj_scan": {"dnj_scan_max_blocks": []},
+    "dnj_join": {"dnj_join_max_blocks": []},
 }
 
 # launches of each kernel since the last reset_launches(); qrow_mins on

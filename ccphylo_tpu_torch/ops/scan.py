@@ -166,16 +166,14 @@ def dnj_scan_plain(words, sD2, Q, P, seed, m_t: int, co: int, K: int):
                            qrow=qrow_mins_plain)
 
 
-def dnj_scan(words: torch.Tensor, sD2: torch.Tensor, Q: torch.Tensor,
-             P: torch.Tensor, seed: torch.Tensor, m_t: int, co: int,
-             K: int) -> torch.Tensor:
-    """`dnj_scan_passes`'s contract, in one launch and with one host
-    read left to the caller (the result).  On a CUDA tensor: the
-    dnj_scan kernel, K co-resident blocks in a cooperative launch; it
-    needs n % 128 == 0, 16-byte aligned words, sD2 and Q, and K within
-    what the card holds at once."""
-    if words.device.type == "cpu":
-        return dnj_scan_plain(words, sD2, Q, P, seed, m_t, co, K)
+def dnj_scan_prepare(words: torch.Tensor, sD2: torch.Tensor,
+                     Q: torch.Tensor, P: torch.Tensor, seed: torch.Tensor,
+                     K: int) -> torch.Tensor:
+    """Check the arguments of a run of `dnj_scan` launches once and
+    allocate their buffer: 4 int32 for the result, then the 6 K of the
+    kernel's scratch.  Returns `prep` for `dnj_scan`.  The kernel needs
+    n % 128 == 0, 16-byte aligned words, sD2 and Q, and K within what
+    the card holds at once."""
     dev = words.device
     n, W = words.shape
     for name, t in (("words", words), ("sD2", sD2), ("Q", Q), ("P", P)):
@@ -192,8 +190,6 @@ def dnj_scan(words: torch.Tensor, sD2: torch.Tensor, Q: torch.Tensor,
                          f"{tuple(P.shape)}")
     if words.data_ptr() % 16 or sD2.data_ptr() % 16 or Q.data_ptr() % 16:
         raise ValueError("words, sD2 and Q must be 16-byte aligned")
-    if not 1 <= m_t <= n:
-        raise ValueError(f"m_t = {m_t} outside [1, {n}]")
     if dev not in _max_blocks:
         with torch.cuda.device(dev):
             _max_blocks[dev] = build.query("dnj_scan", "dnj_scan_max_blocks")
@@ -202,9 +198,27 @@ def dnj_scan(words: torch.Tensor, sD2: torch.Tensor, Q: torch.Tensor,
             f"K = {K}: a cooperative launch of dnj_scan holds 1 to "
             f"{_max_blocks[dev]} blocks on {dev} (a value <= 0 is a CUDA "
             "error code or a card without cooperative launch)")
-    buf = torch.empty(4 + 6 * K, dtype=torch.int32, device=dev)
-    out = buf[:4]
+    return torch.empty(4 + 6 * K, dtype=torch.int32, device=dev)
+
+
+def dnj_scan(words: torch.Tensor, sD2: torch.Tensor, Q: torch.Tensor,
+             P: torch.Tensor, seed: torch.Tensor, m_t: int, co: int,
+             K: int, prep: torch.Tensor | None = None) -> torch.Tensor:
+    """`dnj_scan_passes`'s contract, in one launch and with no host read.
+    On a CUDA tensor: the dnj_scan kernel, K co-resident blocks in a
+    cooperative launch.  `prep` (from `dnj_scan_prepare` on the same
+    tensors and K) skips the checks and the allocation; the result is
+    then a view of it, overwritten by the next launch."""
+    if words.device.type == "cpu":
+        return dnj_scan_plain(words, sD2, Q, P, seed, m_t, co, K)
+    if prep is None:
+        prep = dnj_scan_prepare(words, sD2, Q, P, seed, K)
+    n = words.shape[0]
+    if not 1 <= m_t <= n:
+        raise ValueError(f"m_t = {m_t} outside [1, {n}]")
+    out = prep[:4]
     build.launch("dnj_scan", "dnj_scan", words.data_ptr(), sD2.data_ptr(),
                  n, Q.data_ptr(), P.data_ptr(), seed.data_ptr(), int(m_t),
-                 int(co), K, buf[4:].data_ptr(), out.data_ptr(), device=dev)
+                 int(co), K, prep[4:].data_ptr(), out.data_ptr(),
+                 device=words.device)
     return out

@@ -64,10 +64,10 @@ import numpy as np
 import torch
 
 from ..native import get_lib
+from ..ops.join import _last_min
 from ..ops.scan import dnj_scan_passes, qrow_mins
 from ..ops.select import IBIG, consts
 from ..utils.torchconfig import device as default_device
-from .packed_engine import _last_min
 from .segmenting import run_segmented
 
 STAGE_ROWS = 1024  # rows of one upload copy (a pinned staging buffer each)
@@ -514,7 +514,7 @@ class StreamedDNJ:
         C8[:, col] = C8[slot][self._rowidx]
 
     def _one_join(self, t):
-        """Join t on the cache: packed_engine._one_join cell for cell,
+        """Join t on the cache: ops/join.py::dnj_join_plain cell for cell,
         rows read and written through their slots, columns written to
         every slot."""
         st, m = self.st, self.m

@@ -14,25 +14,34 @@ exits non-zero, no exception is caught:
    sm_90a, one process per source, in parallel);
 2. kernels: hold each kernel bit-exactly against its plain version on
    the card, at the main path's shapes, and time both.  The fused scan
-   `dnj_scan` is held against `dnj_scan_plain` here on an all-tie
-   matrix, and in phases 3 and 4 on every join of a real run's prefix
-   (`CheckedScan`), where it is also timed;
+   `dnj_scan` and the join body `dnj_join` are held against
+   `dnj_scan_plain` and `dnj_join_plain` here on an all-tie matrix, and
+   in phases 3 and 4 on every join of a real run's prefix
+   (`CheckedScan`, `CheckedJoin`), where they are also timed;
 3. main path: n = 2048 isolates of L = 1 Mbp, a clonal outbreak
    generated on the card from a seed, through the port's CLI seams on
    the host arrays the CLI hands them: `dist` (dist_cmd._batch_shared
    and _batch_pairwise; rows checked against the host numpy kernels)
    into `tree -m dnj -b` (tree_cmd._dispatch_build on the packed
-   engine, one dnj_scan launch per join; Newick checked against the
-   host-driven passes over qrow_mins, the plain-scan run and the host
+   engine's device loop, one dnj_scan and one dnj_join launch per join
+   and no host read between fences; Newick checked against the
+   host-driven passes over qrow_mins, the all-plain run and the host
    exact -b engine).  The launch counts of the `kernels` line are this
    phase's: the counters are set to 0 just before each path and read
-   just after it.  The fused and the passes scan are timed back to
-   back (fused, passes, passes, fused), each with its passes, its
-   kernel launches and the share of the wall time spent in the scan;
+   just after it.  The kernel and the plain join body are timed in
+   turns (kernel, plain, plain, kernel), each with its passes and
+   launches; both kernels are held to their plain versions on every
+   join of the whole tree; `JoinProbe` runs one segment under
+   torch.cuda.set_sync_debug_mode("error") (a host read would raise)
+   and measures the card's ms per join of each kernel (CUDA events,
+   the launches queued behind a spin) and the host's enqueue us per
+   join;
 4. at scale: n = 32768 isolates of 100 kbp from the same outbreak
    model, through `dist` into the packed engine (a 1 GiB u8 matrix);
-   dist rows are checked against the host kernels and the first joins
-   against a plain-scan run;
+   dist rows are checked against the host kernels, the first joins
+   against an all-plain run, both kernels against their plain versions
+   on the first CHECKED_JOINS joins (their times there are the
+   `kernels` line's), and `JoinProbe` as in phase 3;
 5. engines: the float64 device engines of all seven tree methods
    (tree/torch_engine.py, tree/hclust_engine.py) on phase 3's integer
    SNP matrix as a double-precision matrix, through
@@ -59,7 +68,7 @@ exits non-zero, no exception is caught:
    model, timed, byte-equal to the host exact engine (the depth is cut
    to leave the script's time limit to the other phases: the host
    engine needs 4-5 minutes at n = 8192; the sharded phase runs this
-   engine at n = 8192).  The host engine's runs are
+   engine at n = N_SHARDED).  The host engine's runs are
    made in worker processes after the card's timed runs, but for the
    three that take a minute or more (the one at depth, nj and mn),
    which run in workers beside them;
@@ -88,7 +97,7 @@ exits non-zero, no exception is caught:
    of parallel/ at world size 1 through a real NCCL group on the card:
    sharded_snp_matrix at n = 2048, L = 1 Mbp against snp_matrix (its
    snp_expand_shared launches counted), sharded DNJ in float64 at
-   n = 8192 against the float64 engine (records bit-equal, joins/s,
+   n = N_SHARDED against the float64 engine (records bit-equal, joins/s,
    passes, host reads and collectives per join), nj and upgma at
    n = 2048 against the same function on CPU tensors in worker
    processes (gloo);
@@ -108,15 +117,16 @@ exits non-zero, no exception is caught:
    tree -m dnj -b (on the untraced dist's matrix) under
    CCPHYLO_TORCH_PROFILE=<dir>, side by side with the same tree
    untraced: each writes a torch.profiler Chrome trace whose `kernel`
-   events name the kernel it runs (expand_shared_kernel,
-   dnj_scan_kernel);
+   events name the kernels it runs (expand_shared_kernel;
+   dnj_scan_kernel and dnj_join_kernel);
 10. dryrun: ccphylo_tpu_torch/dryrun.py, the compile check and
    dry run: entry()'s SNP matrix on the card against CPU tensors; with
    one card, dryrun_multichip(2) refused before any process starts;
    dryrun_multichip(1) on the card (NCCL), the same on CPU tensors
    (gloo) and `python -m ccphylo_tpu_torch.dryrun`, side by side:
    every stage's records equal, the rank's launches of
-   snp_expand_shared, dnj_scan and qrow_mins through slots above 0,
+   snp_expand_shared, dnj_scan, dnj_join and qrow_mins through slots
+   above 0,
    each stage's seconds printed.
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
@@ -154,7 +164,7 @@ import torch
 from ccphylo_tpu_torch import dryrun
 from ccphylo_tpu_torch.cli import dist_cmd, tree_cmd
 from ccphylo_tpu_torch.io.qseqs import Name
-from ccphylo_tpu_torch.ops import build, matdist_torch, scan, snp, snp_torch
+from ccphylo_tpu_torch.ops import build, join, matdist_torch, scan, snp, snp_torch
 from ccphylo_tpu_torch.ops.veccmp import cmp_mats, get_veccmp, p_chisqr
 from ccphylo_tpu_torch.parallel import multihost
 from ccphylo_tpu_torch.parallel import sharded_dnj as sd
@@ -174,14 +184,16 @@ N_SCALE, L_SCALE = 32768, 100_000
 # script inside its time limit (PERF.md section 4)
 N_DEPTH = 3072       # the float64 DNJ engine's run at depth
 N_CATERPILLAR = 2048  # exact_range on a matrix that joins along a chain
-N_SHARDED = 8192     # the sharded DNJ engine beside the float64 engine
+N_SHARDED = 4096     # the sharded DNJ engine beside the float64 engine
 PROFILE_JOINS = 64   # joins under torch.profiler in the `profile` phase
 TREE_METHODS = ("dnj", "upgma", "ff", "cf", "hnj", "nj", "mn")
 RANDOM_METHODS = ("dnj", "upgma", "cf", "hnj")  # run on the random matrix
 MISSING_METHODS = ("dnj", "upgma")  # run on the matrix with missing cells
 EXP_ROWS, EXP_WORDS = 2048, 2048  # one genome chunk of the main path
 PREFIX_JOINS = 1024  # plain-scan check of the phase-4 run
-CHECKED_JOINS = 256  # joins of a run on which dnj_scan is held to plain
+CHECKED_JOINS = 256  # joins of a run on which the kernels are held to plain
+PROBE_JOINS = 64     # joins of each window of `JoinProbe`
+PROBE_SPIN = 200_000_000  # cycles the card spins before a probe window
 KBATCH = 128         # candidate rows per scan pass (the engine's default)
 X_SCALE = 8192       # cache rows of the row-cache engine at n = N_SCALE
 STREAM_JOINS = 4096  # its joins held against the packed engine's
@@ -204,6 +216,9 @@ KERNEL_META = {
                   "ccphylo_tpu/ops/scan_pallas.py:49"),
     "dnj_scan": ("ccphylo_tpu_torch/csrc/dnj_scan.cu",
                  "ccphylo_tpu/ops/scan_pallas.py:49"),
+    # the jnp join body inside the device loop _packed_segment (no Pallas)
+    "dnj_join": ("ccphylo_tpu_torch/csrc/dnj_join.cu",
+                 "ccphylo_tpu/tree/packed_engine.py:215"),
     # qrow_mins reading its rows through the slot map of a row cache
     "qrow_mins_slots": ("ccphylo_tpu_torch/csrc/qrow_mins.cu",
                         "ccphylo_tpu/ops/scan_pallas.py:49"),
@@ -330,21 +345,21 @@ class _Stop(Exception):
     pass
 
 
-def run_prefix(words, n, joins, scan_name):
+def run_prefix(words, n, joins, scan_name, body=None):
     """The first `joins` joins of the packed engine on `words` (updated
-    in place); returns the join records so far as numpy arrays."""
+    in place), in one fenced segment; returns the join records so far as
+    numpy arrays."""
     prefix = {}
 
     def stop(st, done, total):
-        prefix.update({k: np.array(st[k]) for k in ("I", "J")})
         prefix.update({k: st[k].cpu().numpy() for k in
-                       ("DIJ2", "SDI2", "SDJ2")})
+                       ("I", "J", "DIJ2", "SDI2", "SDJ2")})
         raise _Stop
 
     seg, segmenting.SEG = segmenting.SEG, joins
     try:
         pe.dnj_joins_packed(words, n, kbatch=KBATCH, hooks=stop,
-                            scan=scan_name)
+                            scan=scan_name, body=body)
     except _Stop:
         pass
     finally:
@@ -352,18 +367,108 @@ def run_prefix(words, n, joins, scan_name):
     return prefix
 
 
+def words_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest difference of two byte matrices (as int32 words), cell by
+    cell, in row blocks."""
+    if torch.equal(a, b):
+        return 0
+    a8, b8 = a.view(torch.uint8), b.view(torch.uint8)
+    return max(int((a8[r:r + 1024].int() - b8[r:r + 1024].int()).abs().max())
+               for r in range(0, a8.shape[0], 1024))
+
+
+def join_bytes(n, m_t, i, j, q_changed) -> int:
+    """Bytes a join body must move: rows i and j read, row and column j
+    written, sD2 read and written, Q read over j < k < m_t, the Q and P
+    entries that change written; with popArrange row `last` read and
+    row and column i written over the padded width n; the records."""
+    b = 4 * m_t + 8 * m_t + 4 * (m_t - j - 1) + 8 * q_changed + 40
+    return b + (3 * n if i != m_t - 1 else 0)
+
+
+class CheckedJoin:
+    """A join body for pe.BODIES that holds `dnj_join` against
+    `dnj_join_plain` on every join it is given, bit for bit: the byte
+    matrix, sD2, Q, P, the seed, the five records and the stats.  With
+    `timed`, it also times both on the first join of each kind
+    (popArrange, i == last)."""
+
+    KINDS = ("popArrange", "i == last")
+
+    def __init__(self, timed=False):
+        self.timing = timed
+        self.joins = 0
+        self.err = 0
+        self.kinds = dict.fromkeys(self.KINDS + ("m_t == 3",), 0)
+        self.timed = []  # dicts: join, m_t, kind, ms, plain_ms, bound_ms
+        self._copy = None
+
+    def _state_copy(self, state):
+        if self._copy is None or self._copy.shape != state[0].shape:
+            self._copy = torch.empty_like(state[0])
+        self._copy.copy_(state[0])
+        return [self._copy] + [x.clone() for x in state[1:]]
+
+    def __call__(self, *args):
+        state, (out, t, m_t) = args[:11], args[11:]
+        n = state[0].shape[0]
+        i, j = out[:2].tolist()
+        kind = self.KINDS[i == m_t - 1]
+        ref = self._state_copy(state)
+        Q0 = state[2].clone()
+        join.dnj_join_plain(*ref, out.clone(), t, m_t)
+        if self.timing and not self.kinds[kind] and (i or j):
+            changed = int((ref[2] != Q0).sum())
+            self._time(state, out, t, m_t, kind,
+                       join_bytes(n, m_t, i, j, changed))
+        join.dnj_join(*state, out, t, m_t)
+        err = max(words_err(state[0], ref[0]),
+                  max_abs_err(state[1:], ref[1:]))
+        self.err = max(self.err, err)
+        assert err == 0, f"dnj_join differs from its plain version at " \
+                         f"join {t} (i={i}, j={j}, m_t={m_t})"
+        self.kinds[kind] += 1
+        self.kinds["m_t == 3"] += m_t == 3
+        self.joins += 1
+
+    def _time(self, state, out, t, m_t, kind, nbytes):
+        # repeated on a scratch copy: the same (i, j) on a drifting state
+        # moves the same cells
+        tmp = [x.clone() for x in state]
+        prep = join.dnj_join_prepare(*tmp)
+        ms = cuda_ms(lambda: join.dnj_join(*tmp, out, t, m_t, prep=prep),
+                     20)
+        plain = cuda_ms(lambda: join.dnj_join_plain(*tmp, out, t, m_t), 5)
+        del tmp
+        self.timed.append({"join": t, "m_t": m_t, "kind": kind, "ms": ms,
+                           "plain_ms": plain, "bound_ms": bytes_ms(nbytes),
+                           "blocks": prep[1]})
+
+    def summary(self) -> dict:
+        k = max(len(self.timed), 1)
+        return {"joins": self.joins, "max_abs_err": self.err,
+                "kinds": self.kinds, "timed": self.timed,
+                "ms": sum(t["ms"] for t in self.timed) / k,
+                "plain_ms": sum(t["plain_ms"] for t in self.timed) / k,
+                "bound_ms": sum(t["bound_ms"] for t in self.timed) / k}
+
+
 def checked_prefix(words8, n, joins, timed, res, key):
-    """Hold dnj_scan against its plain version on the first `joins`
-    joins of a real run on a copy of the byte matrix `words8`; with
-    `timed`, the prefix must hold a join of each kind, and the first of
-    each is timed."""
+    """Hold dnj_scan and dnj_join against their plain versions on the
+    first `joins` joins of a real run on a copy of the byte matrix
+    `words8`; with `timed`, the prefix must hold a scan of each kind,
+    and the first of each kind of scan and of join is timed.  Returns
+    the summaries of the scan and of the join."""
     chk = pe.SCANS["checked"] = CheckedScan(timed)
+    cj = pe.BODIES["checked"] = CheckedJoin(timed)
     try:
-        run_prefix(words8.clone().view(torch.int32), n, joins, "checked")
+        run_prefix(words8.clone().view(torch.int32), n, joins, "checked",
+                   "checked")
     finally:
-        del pe.SCANS["checked"]
+        del pe.SCANS["checked"], pe.BODIES["checked"]
     res[key] = s = chk.summary()
-    assert s["joins"] == joins
+    res[key + "_join"] = sj = cj.summary()
+    assert s["joins"] == joins and sj["joins"] == joins
     assert not timed or (all(s["kinds"].values())
                          and len(s["timed"]) == len(CheckedScan.KINDS)), s
     log(f"dnj_scan equals dnj_scan_plain on the first {joins} joins at "
@@ -372,7 +477,98 @@ def checked_prefix(words8, n, joins, timed, res, key):
         log(f"  join {t['join']}: {t['passes']} passes, {t['rows']} rows: "
             f"dnj_scan {t['ms']:.4f} ms, plain version "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms")
-    return s
+    log(f"dnj_join equals dnj_join_plain on the first {joins} joins at "
+        f"n={n}: {sj['kinds']}")
+    for t in sj["timed"]:
+        log(f"  join {t['join']} (m_t={t['m_t']}, {t['kind']}, "
+            f"{t['blocks']} blocks): dnj_join {t['ms']:.4f} ms, plain "
+            f"version {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms")
+    return s, sj
+
+
+class JoinProbe:
+    """A scan and a body for pe.SCANS / pe.BODIES that run the engine's
+    own kernels (dnj_scan, dnj_join, with the buffers the engine
+    prepares once a run) over one segment of 3 W joins, W =
+    PROBE_JOINS, after the card has finished the run's init, and
+    measure it:
+    - the whole segment runs under torch.cuda.set_sync_debug_mode
+      ("error"), set at its first scan and reset after its last body,
+      so the fence after it is outside: any host read raises;
+    - joins [W, 2W): the host's clock over them is its enqueue time
+      (a launch does not wait for the card while the queue has room);
+    - joins [2W, 3W) are enqueued behind a spin too, with CUDA events
+      around each launch: the card's ms per join of each kernel."""
+
+    def __init__(self, W=PROBE_JOINS):
+        self.W, self.t = W, 0
+        self.ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                   for _ in range(W)]
+        self.h = [0.0, 0.0]
+
+    def scan(self, *a, prep=None):
+        t, W = self.t, self.W
+        if t == 0:
+            # the run's init done first: a queue still full of its work
+            # would hold back the host's launches in window [W, 2W)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        if t == 2 * W:
+            torch.cuda._sleep(PROBE_SPIN)
+        if t == W:
+            self.h[0] = time.perf_counter()
+        if t >= 2 * W:
+            self.ev[t - 2 * W][0].record()
+        r = scan.dnj_scan(*a, prep=prep)
+        if t >= 2 * W:
+            self.ev[t - 2 * W][1].record()
+        return r
+
+    def body(self, *a, prep=None):
+        join.dnj_join(*a, prep=prep)
+        t, W = self.t, self.W
+        if t >= 2 * W:
+            self.ev[t - 2 * W][2].record()
+        if t == 2 * W - 1:
+            self.h[1] = time.perf_counter()
+        if t == 3 * W - 1:
+            torch.cuda.set_sync_debug_mode(0)
+        self.t += 1
+
+    def run(self, words, n) -> dict:
+        pe.SCANS["probe"], pe.BODIES["probe"] = self.scan, self.body
+        pe._PREPARE[self.scan] = scan.dnj_scan_prepare
+        pe._PREPARE[self.body] = join.dnj_join_prepare
+        build.reset_launches()
+        try:
+            run_prefix(words, n, 3 * self.W, "probe", "probe")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del pe.SCANS["probe"], pe.BODIES["probe"]
+            del pe._PREPARE[self.scan], pe._PREPARE[self.body]
+        W = self.W
+        assert build.launches["dnj_scan"] == build.launches["dnj_join"] \
+            == 3 * W, build.launches
+        scan_ms = [a.elapsed_time(b) for a, b, _ in self.ev]
+        join_ms = [b.elapsed_time(c) for _, b, c in self.ev]
+        window = self.ev[0][0].elapsed_time(self.ev[-1][2])
+        return {"joins": 3 * W, "sync_debug_error_joins": 3 * W,
+                "host_enqueue_us_per_join": 1e6 * (self.h[1] - self.h[0]) / W,
+                "scan_ms_per_join": sum(scan_ms) / W,
+                "join_ms_per_join": sum(join_ms) / W,
+                "join_ms_max": max(join_ms),
+                "device_ms_per_join": window / W}
+
+
+def probe_joins(words8, n, res, key):
+    p = res[key] = JoinProbe().run(words8.clone().view(torch.int32), n)
+    log(f"device loop n={n}: {p['joins']} joins in one segment under "
+        f"set_sync_debug_mode('error') (no host read); host enqueue "
+        f"{p['host_enqueue_us_per_join']:.1f} us per join; on the card "
+        f"dnj_scan {p['scan_ms_per_join']:.4f} ms, dnj_join "
+        f"{p['join_ms_per_join']:.4f} ms (max {p['join_ms_max']:.4f}), "
+        f"{p['device_ms_per_join']:.4f} ms per join in all")
+    return p
 
 
 # ---------------------------------------------------------------------
@@ -474,14 +670,17 @@ def phase_kernels(dev, g, res):
         (rmin, rarg), scan.qrow_mins_plain(rows, 10, words, sd2)))
     del words, sd2
 
-    # the fused scan from an all-tie matrix (every cell 5, so every
-    # cached Q ties): the whole engine run at n = 2048, then the first
-    # joins at n = 32768, each join against the plain version
+    # the fused scan and the join body from an all-tie matrix (every
+    # cell 5, so every cached Q ties): the whole engine run at n = 2048,
+    # then the first joins at n = 32768, each join against the plain
+    # versions
     for n, joins in ((N_DIST, N_DIST - 2), (N_SCALE, CHECKED_JOINS)):
         tie = torch.full((n, n), 5, dtype=torch.uint8, device=dev)
         tie.fill_diagonal_(0)
-        s = checked_prefix(tie, n, joins, False, res, f"scan_check_ties_{n}")
+        s, sj = checked_prefix(tie, n, joins, False, res,
+                               f"scan_check_ties_{n}")
         err["dnj_scan"] = max(err["dnj_scan"], s["max_abs_err"])
+        err["dnj_join"] = max(err["dnj_join"], sj["max_abs_err"])
         del tie
     res["max_abs_err"] = err
     assert all(v == 0 for v in err.values()), err
@@ -589,6 +788,8 @@ def phase_main_path(dev, g, res):
     nwk, t_tree = synced(lambda: tree_cmd._dispatch_build(
         flat, n, names(), "dnj", 0, 9, "b", 1.0))
     res["main_path_launches"] = dict(build.launches)
+    assert build.launches["dnj_scan"] == build.launches["dnj_join"] \
+        == n - 2, build.launches
     fused_passes = int(pe.dnj_joins_packed.last_stats[0])
     pairs = n * (n - 1) / 2
     res["dist_shared_s"], res["dist_pairwise_s"] = t_dist, t_pair
@@ -600,71 +801,54 @@ def phase_main_path(dev, g, res):
         f"{pairs / t_pair:,.0f} sample-pairs/s")
     log(f"tree seam -m dnj -b: {t_tree:.3f} s, {(n - 2) / t_tree:,.0f} "
         f"joins/s, scan passes {fused_passes}, dnj_scan launches "
-        f"{build.launches['dnj_scan']}")
+        f"{build.launches['dnj_scan']}, dnj_join launches "
+        f"{build.launches['dnj_join']}")
 
-    # the same path with the host-driven passes over qrow_mins: counted
-    # for the `kernels` line, then timed in turns with the fused scan
+    def launched():
+        return {k: v for k, v in build.launches.items() if v}
+
+    # the same path with the host-driven passes over qrow_mins, counted
+    # for the `kernels` line
     build.reset_launches()
     nwk_passes, t = synced(lambda: pe.build_tree_packed(
         flat, n, names(), scan="passes"))
     assert nwk == nwk_passes, "Newick differs from the passes run"
     assert build.launches["dnj_scan"] == 0
     res["main_path_launches"]["qrow_mins"] = build.launches["qrow_mins"]
-    runs = res["tree_scan_runs"] = [
-        {"scan": "fused", "s": t_tree, "passes": fused_passes,
-         "kernel_launches": res["main_path_launches"]["dnj_scan"]},
-        {"scan": "passes", "s": t,
+    runs = res["tree_runs"] = [
+        {"scan": "fused", "body": "kernel", "s": t_tree,
+         "passes": fused_passes, "launches": res["main_path_launches"]},
+        {"scan": "passes", "body": "kernel", "s": t,
          "passes": int(pe.dnj_joins_packed.last_stats[0]),
-         "kernel_launches": build.launches["qrow_mins"]}]
-    for name in ("passes", "fused"):
+         "launches": launched()}]
+    # the join body in turns: kernel, plain, plain, kernel
+    for body in ("kernel", "plain", "plain", "kernel"):
         build.reset_launches()
         out, t = synced(lambda: pe.build_tree_packed(
-            flat, n, names(), scan=name))
+            flat, n, names(), body=body))
         assert out == nwk
-        runs.append({"scan": name, "s": t,
+        runs.append({"scan": "fused", "body": body, "s": t,
                      "passes": int(pe.dnj_joins_packed.last_stats[0]),
-                     "kernel_launches": sum(build.launches.values())})
+                     "launches": launched()})
     for r in runs:
         r["joins_per_s"] = (n - 2) / r["s"]
-        log(f"tree n={n} scan={r['scan']}: {r['s']:.3f} s, "
-            f"{r['joins_per_s']:,.1f} joins/s, {r['passes']} passes "
-            f"({r['passes'] / (n - 2):.3f} per join), "
-            f"{r['kernel_launches']} scan-kernel launches "
-            f"({r['kernel_launches'] / (n - 2):.3f} per join)")
+        log(f"tree n={n} scan={r['scan']} body={r['body']}: {r['s']:.3f} "
+            f"s, {r['joins_per_s']:,.1f} joins/s, {r['passes']} passes "
+            f"({r['passes'] / (n - 2):.3f} per join), launches "
+            f"{r['launches']}")
 
-    # where a join's wall time goes: the scan up to its host read, and
-    # the rest (updateD, cache repair, popArrange)
-    res["tree_scan_split"] = split = {}
-    for name in ("fused", "passes"):
-        acc = [0.0]
-
-        def timed(*a, fn=pe.SCANS[name], acc=acc):
-            t0 = time.perf_counter()
-            r = fn(*a)
-            r[:2].tolist()  # the engine's host read, taken here
-            acc[0] += time.perf_counter() - t0
-            return r
-
-        pe.SCANS["timed"] = timed
-        try:
-            _, t = synced(lambda: pe.build_tree_packed(
-                flat, n, names(), scan="timed"))
-        finally:
-            del pe.SCANS["timed"]
-        split[name] = {"s": t, "scan_s": acc[0], "rest_s": t - acc[0]}
-        log(f"tree n={n} scan={name}, split by host clock: {t:.3f} s, "
-            f"scan with its host read {acc[0]:.3f} s "
-            f"({1e3 * acc[0] / (n - 2):.3f} ms per join), rest of the "
-            f"join {t - acc[0]:.3f} s "
-            f"({1e3 * (t - acc[0]) / (n - 2):.3f} ms per join)")
-
-    # dnj_scan against its plain version on every join of this run's
-    # first CHECKED_JOINS, timed on the first join of each kind
+    # dnj_scan and dnj_join against their plain versions on every join
+    # of this tree, timed on the first join of each kind; then where a
+    # join's time goes on the card and on the host, with no host read
     D8 = torch.from_numpy(np.clip(Dh, 0, 255).astype(np.uint8)).to(dev)
     D8 = torch.nn.functional.pad(D8, (0, pe.pad_packed(n) - n,
                                       0, pe.pad_packed(n) - n))
-    checked_prefix(D8, n, CHECKED_JOINS, True, res,
-                   f"scan_check_{n}")
+    s, sj = checked_prefix(D8, n, n - 2, True, res, f"scan_check_{n}")
+    assert all(sj["kinds"].values()), sj["kinds"]
+    err = res.setdefault("max_abs_err", {})
+    for name, x in (("dnj_scan", s), ("dnj_join", sj)):
+        err[name] = max(err.get(name, 0), x["max_abs_err"])
+    probe_joins(D8, n, res, f"join_probe_{n}")
     del D8
 
     # the device share of dist: snp_matrix on sequences already on the card
@@ -735,7 +919,8 @@ def phase_scale(dev, g, res):
     build.reset_launches()
     out, t = synced(lambda: pe.dnj_joins_packed(words, n, kbatch=KBATCH))
     launches = build.launches["dnj_scan"]
-    assert launches == n - 2 and build.launches["qrow_mins"] == 0
+    assert launches == build.launches["dnj_join"] == n - 2 \
+        and build.launches["qrow_mins"] == 0, build.launches
     I, J = out[0].cpu().numpy()[:n - 2], out[1].cpu().numpy()[:n - 2]
     m_t = n - np.arange(n - 2)
     assert ((J >= 0) & (J < I) & (I < m_t)).all(), "bad join records"
@@ -744,18 +929,22 @@ def phase_scale(dev, g, res):
     res["scale_scan_launches"] = launches
     res["scale_scan_passes"] = int(pe.dnj_joins_packed.last_stats[0])
     log(f"packed engine n={n}: {t:.1f} s, {(n - 2) / t:,.1f} joins/s, "
-        f"{launches} dnj_scan launches, {res['scale_scan_passes']} passes "
+        f"{launches} dnj_scan and dnj_join launches each, "
+        f"{res['scale_scan_passes']} passes "
         f"({res['scale_scan_passes'] / (n - 2):.3f} per join)")
 
-    # dnj_scan against its plain version on the first joins of this
-    # matrix, timed on the first join of each kind (no pass, one,
-    # several): their mean is the `kernels` line's dnj_scan time
-    s = checked_prefix(D8, n, CHECKED_JOINS, True, res,
-                       f"scan_check_{n}")
-    res.setdefault("kernel_ms", {})["dnj_scan"] = (s["ms"], s["plain_ms"])
-    res.setdefault("bound_ms", {})["dnj_scan"] = s["bound_ms"]
+    # dnj_scan and dnj_join against their plain versions on the first
+    # joins of this matrix, timed on the first join of each kind (scan:
+    # no pass, one, several; join: popArrange, i == last): their means
+    # are the `kernels` line's times of the two kernels
+    s, sj = checked_prefix(D8, n, CHECKED_JOINS, True, res,
+                           f"scan_check_{n}")
     err = res.setdefault("max_abs_err", {})
-    err["dnj_scan"] = max(err.get("dnj_scan", 0), s["max_abs_err"])
+    for name, x in (("dnj_scan", s), ("dnj_join", sj)):
+        res.setdefault("kernel_ms", {})[name] = (x["ms"], x["plain_ms"])
+        res.setdefault("bound_ms", {})[name] = x["bound_ms"]
+        err[name] = max(err.get(name, 0), x["max_abs_err"])
+    probe_joins(D8, n, res, f"join_probe_{n}")
 
     # the first joins again with the plain scan, on the untouched matrix
     k = PREFIX_JOINS
@@ -1752,8 +1941,8 @@ def cli_trace(d, env, fsas, dist17):
     Path(phy).write_bytes(dist17)
     tree_args = ["tree", "-m", "dnj", "-b", "-i", phy]
     runs = {"dist": (["dist", "-r", "tpl1", "-f", "17", "-i"] + fsas,
-                     "expand_shared_kernel"),
-            "tree": (tree_args, "dnj_scan_kernel")}
+                     ("expand_shared_kernel",)),
+            "tree": (tree_args, ("dnj_scan_kernel", "dnj_join_kernel"))}
     jobs = {cmd: (args, dict(env, CCPHYLO_TORCH_PROFILE=os.path.join(
         d, "prof_" + cmd))) for cmd, (args, _) in runs.items()}
     jobs["tree untraced"] = (tree_args, env)
@@ -1771,11 +1960,11 @@ def cli_trace(d, env, fsas, dist17):
         events = json.loads(files[0].read_text())["traceEvents"]
         kernels = [e.get("name", "") for e in events
                    if e.get("cat") == "kernel"]
-        assert any(want in k for k in kernels), (cmd, sorted(set(kernels)))
+        launches = {w: sum(w in k for k in kernels) for w in want}
+        assert all(launches.values()), (cmd, sorted(set(kernels)))
         info[cmd] = {"kernel_events": len(kernels),
-                     "trace_bytes": files[0].stat().st_size, "kernel": want,
-                     "launches": sum(want in k for k in kernels),
-                     "process_s": out[cmd][2]}
+                     "trace_bytes": files[0].stat().st_size,
+                     "launches": launches, "process_s": out[cmd][2]}
     info["tree"]["process_s_untraced"] = out["tree untraced"][2]
     return info
 
@@ -1855,8 +2044,8 @@ def phase_cli(res):
         trace = res["cli_trace"] = cli_trace(d, base, fsas,
                                              dist_out["-f 17"][0])
         log("CLI trace (CCPHYLO_TORCH_PROFILE=<dir>): " + "; ".join(
-            f"{cmd}: {t['kernel_events']} kernel events, {t['launches']} "
-            f"of {t['kernel']}, {t['trace_bytes']} bytes, process "
+            f"{cmd}: {t['kernel_events']} kernel events (of them "
+            f"{t['launches']}), {t['trace_bytes']} bytes, process "
             f"{t['process_s']:.2f} s" for cmd, t in trace.items())
             + "; tree without the profiler "
             f"{trace['tree']['process_s_untraced']:.2f} s")
@@ -1925,7 +2114,8 @@ def phase_dryrun(dev, res):
                           for k in dryrun.STAGES}
     out["launches"] = {k[len("launches/"):]: int(v) for k, v in card.items()
                        if k.startswith("launches/")}
-    for k in ("snp_expand_shared", "dnj_scan", "qrow_mins_slots"):
+    for k in ("snp_expand_shared", "dnj_scan", "dnj_join",
+              "qrow_mins_slots"):
         assert out["launches"][k] > 0, out["launches"]
     log(f"dry run: entry() {out['entry_s']:.4f} s, equal to its CPU "
         f"result; dryrun_multichip(1) on the card equals it on CPU tensors "

@@ -2,7 +2,8 @@
 (ccphylo_tpu_torch/tree/packed_engine.py, plain scan on the CPU) against
 the JAX engine ccphylo_tpu.tree.packed_engine and the host exact -b
 engine of both packages, with each of the engine's scans (`fused`, one
-launch per join; `passes`, the host-driven loop over qrow_mins; `plain`).
+launch per join; `passes`, the host-driven loop over qrow_mins; `plain`)
+and join bodies (`kernel`, one launch per join; `plain`).
 Everything compared is an integer or the bytes of a Newick string, so
 every comparison is bit-exact (tolerance 0)."""
 
@@ -72,17 +73,18 @@ def test_records_match_jax_engine(n, seed, hi):
                                   jpe.dnj_joins_packed.last_stats)
 
 
+@pytest.mark.parametrize("body", sorted(tpe.BODIES))
 @pytest.mark.parametrize("scan", sorted(tpe.SCANS))
 @pytest.mark.parametrize("kbatch", [128, 8])
-def test_every_scan_matches_jax_engine(scan, kbatch):
+def test_every_scan_matches_jax_engine(scan, kbatch, body):
     """Records, the final byte matrix and the scan statistics (passes,
-    changed rows) of each scan equal the JAX engine's, also where a
-    join takes several passes (kbatch 8)."""
+    changed rows) of each scan, under each join body, equal the JAX
+    engine's, also where a join takes several passes (kbatch 8)."""
     n = 150
     rng = np.random.RandomState(21)
     qv = rng.randint(0, 40, n * (n - 1) // 2).astype(np.uint8)
     Dq = _square(qv, n, tpe.pad_packed(n))
-    ours = _port(Dq, n, kbatch=kbatch, scan=scan)
+    ours = _port(Dq, n, kbatch=kbatch, scan=scan, body=body)
     stats = tpe.dnj_joins_packed.last_stats.copy()
     ref = _jax(Dq, n, kbatch=kbatch)
     _assert_same(ours, ref)
@@ -95,6 +97,39 @@ def test_unknown_scan_is_refused():
     Dq = _square(np.ones(45, np.uint8), 10, tpe.pad_packed(10))
     with pytest.raises(ValueError, match="fused"):
         _port(Dq, 10, scan="nope")
+
+
+def test_unknown_body_is_refused():
+    Dq = _square(np.ones(45, np.uint8), 10, tpe.pad_packed(10))
+    with pytest.raises(ValueError, match="kernel"):
+        _port(Dq, 10, body="nope")
+
+
+def test_records_stay_tensors_and_default_body(monkeypatch):
+    """The engine keeps I and J as tensors on the device of `words` (the
+    records are never copied to the host between fences), runs the
+    kernel body by default and the plain body with the plain scan."""
+    n = 40
+    rng = np.random.RandomState(3)
+    Dq = _square(rng.randint(0, 30, n * (n - 1) // 2).astype(np.uint8), n,
+                 tpe.pad_packed(n))
+    seen = []
+
+    def spy(name):
+        fn = tpe.BODIES[name]
+
+        def body(*a, **kw):
+            seen.append((name, type(a[5]), type(a[6])))
+            return fn(*a, **kw)
+        return body
+
+    monkeypatch.setattr(tpe, "BODIES", {k: spy(k) for k in tpe.BODIES})
+    ref = _port(Dq, n, scan="plain")
+    assert {s[0] for s in seen} == {"plain"}
+    seen.clear()
+    _assert_same(_port(Dq, n), ref)
+    assert {s[0] for s in seen} == {"kernel"} and len(seen) == n - 2
+    assert {s[1:] for s in seen} == {(torch.Tensor, torch.Tensor)}
 
 
 def test_kbatch_invariance():

@@ -14,12 +14,12 @@ import torch
 
 import jax.numpy as jnp
 
-import ccphylo_tpu.tree.packed_engine as jpe
 import ccphylo_tpu_torch.tree.packed_engine as tpe
 from ccphylo_tpu.ops import select as jselect
 from ccphylo_tpu.ops.scan_pallas import qrow_mins as pallas_qrow_mins
-from ccphylo_tpu_torch.interop import state_from_jax
 from ccphylo_tpu_torch.ops import scan, select
+
+from .torch_states import jax_states, port_state
 
 IBIG = 2 ** 31 - 1
 
@@ -93,53 +93,17 @@ def test_topk_mask_indices_matches_jax(seed, n, K, p):
 # the whole scan of a join
 
 
-def _jax_states(n, seed, hi, K, monkeypatch):
-    """States of the JAX packed engine before every join of one run:
-    [(joins done, {key: numpy array})], the last one the final state."""
-    rng = np.random.RandomState(seed)
-    qv = rng.randint(0, hi, n * (n - 1) // 2).astype(np.uint8)
-    Dq = np.zeros((tpe.pad_packed(n),) * 2, np.uint8)
-    iu = np.tril_indices(n, -1)
-    Dq[(iu[0], iu[1])] = qv
-    Dq[(iu[1], iu[0])] = qv
-    words = jpe.pack_words(Dq)
-    npad = words.shape[0]
-    sD2, Q, P, sd = jpe._packed_init(words, jnp.int32(n))
-    z = np.zeros(npad, np.int32)
-    states = [(0, dict(zip(jpe._STATE_KEYS, (
-        np.asarray(words), np.asarray(sD2), np.asarray(Q), np.asarray(P),
-        np.asarray(sd), z, z, z, z, z, np.zeros(4, np.int32)))))]
-
-    def snap(state, done, total):
-        states.append((done, {k: np.array(v) for k, v in
-                              zip(jpe._STATE_KEYS, state)}))
-
-    monkeypatch.setenv("CCPHYLO_TPU_SEG", "1")
-    monkeypatch.setenv("CCPHYLO_TPU_SEG_FIXED", "1")
-    jpe.dnj_joins_packed(words, jnp.int32(n), kbatch=K, hooks=snap)
-    assert [d for d, _ in states] == list(range(n - 1))
-    return states
-
-
-def _port_state(d):
-    """The port's engine state on copies of the arrays of `d` (the port
-    updates its state in place)."""
-    return state_from_jax(engine_state={k: np.array(v) for k, v in
-                                        d.items()})["engine_state"]
-
-
 @pytest.mark.parametrize("n,seed,hi,K", [(90, 3, 200, 128), (90, 4, 6, 8),
                                          (130, 5, 40, 4)])
-def test_dnj_scan_plain_steps_match_jax_engine(n, seed, hi, K, monkeypatch):
+def test_dnj_scan_plain_steps_match_jax_engine(n, seed, hi, K):
     """One join of the port from each state of a JAX run — the plain
     scan, then the join body — gives the JAX engine's next state: the
     pair (i, j), Q, P, sD2, the byte matrix, the seed and the stats."""
-    states = _jax_states(n, seed, hi, K, monkeypatch)
-    idx = torch.arange(states[0][1]["Q"].shape[0], dtype=torch.int32)
+    states = jax_states(n, seed, hi, K)
     passes = 0
     for (t, before), (_, after) in zip(states[:-1], states[1:]):
-        st = _port_state(before)
-        tpe._one_join(st, t, n, K, scan.dnj_scan_plain, idx)
+        st = port_state(before)
+        tpe._one_join(st, t, n, K, scan.dnj_scan_plain, tpe.dnj_join_plain)
         assert (st["I"][t], st["J"][t]) == (after["I"][t], after["J"][t])
         for key in ("Q", "P", "sD2", "stats", "DIJ2", "SDI2", "SDJ2"):
             np.testing.assert_array_equal(st[key].numpy(), after[key],
@@ -248,15 +212,14 @@ def _kernel_model(D8, sD2, Q, P, seed, m_t, co, K):
 
 @pytest.mark.parametrize("n,seed,hi,K", [(70, 3, 200, 128), (70, 4, 6, 8),
                                          (200, 5, 40, 4), (300, 6, 3, 2)])
-def test_dnj_scan_kernel_algorithm_matches_plain(n, seed, hi, K,
-                                                 monkeypatch):
+def test_dnj_scan_kernel_algorithm_matches_plain(n, seed, hi, K):
     """The kernel's shortcuts (bounded walks, early end, changed rows
     counted at the write) give dnj_scan_plain's result, Q and P on
     every state of a run, stale caches and ties included."""
-    states = _jax_states(n, seed, hi, K, monkeypatch)
+    states = jax_states(n, seed, hi, K)
     several = 0
     for t, d in states[:-1]:
-        st = _port_state(d)
+        st = port_state(d)
         m_t = n - t
         co = 2 * (m_t - 2)
         Q, P = d["Q"].astype(np.int64), d["P"].astype(np.int64)
