@@ -13,9 +13,10 @@ The main path:
 - `dist` on 2-bit packed alignments -> all-pairs SNP matrix
   (ops/snp_torch.py; CUDA expansion kernels csrc/snp_expand.cu);
 - `tree -m dnj -b` on the exact-int32 packed u8 engine
-  (tree/packed_engine.py; CUDA batch-scan kernels csrc/dnj_scan.cu and
-  csrc/qrow_mins.cu, CUDA join-body kernel csrc/dnj_join.cu: on the card
-  a join is two launches and no host read).
+  (tree/packed_engine.py; CUDA segment kernel csrc/dnj_segment.cu: on
+  the card each segment of 1024 joins is one launch and no host read;
+  beside it the batch-scan kernels csrc/dnj_scan.cu and
+  csrc/qrow_mins.cu and the join-body kernel csrc/dnj_join.cu).
 By default `tree` sends every complete matrix that a device engine
 computes exactly to the card (cli/tree_cmd.py::_route): the packed
 engine for `-m dnj -b`, the float64 engines of all seven methods

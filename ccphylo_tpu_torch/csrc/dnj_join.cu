@@ -71,56 +71,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// sum over the block, returned to every thread
-__device__ __forceinline__ int block_sum(int v) {
-  __shared__ int s[kWarps];
-  __shared__ int total;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(kFullMask, v, off);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) s[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int t = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += s[w];
-    total = t;
-  }
-  __syncthreads();
-  return total;
-}
-
-// (minimum, largest index at it) over the block, valid in thread 0;
-// (kIBig, -1) for a block with no entry
-__device__ __forceinline__ void block_best(int& v, int& x) {
-  __shared__ int sv[kWarps], sx[kWarps];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    take_better(v, x, __shfl_down_sync(kFullMask, v, off),
-                __shfl_down_sync(kFullMask, x, off));
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) {
-    sv[warp] = v;
-    sx[warp] = x;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? sv[lane] : kIBig;
-    x = lane < kWarps ? sx[lane] : -1;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      take_better(v, x, __shfl_down_sync(kFullMask, v, off),
-                  __shfl_down_sync(kFullMask, x, off));
-  }
-  __syncthreads();  // sv, sx free for the next call
-}
-
-// q = co * cell - a - b in int32 with two's-complement wrap
-__device__ __forceinline__ int qval(int co, int cell, int a, int b) {
-  return (int)((unsigned)co * (unsigned)cell - (unsigned)a - (unsigned)b);
-}
-
 // the four reductions of phase B, in scratch after the B partial sums
 enum { kRowJ = 0, kColJ = 1, kRowI = 2, kColI = 3, kReductions = 4 };
 

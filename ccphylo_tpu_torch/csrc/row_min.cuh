@@ -1,5 +1,6 @@
 // Row body of the packed DNJ engine's batch scan, shared by the
-// qrow_mins kernel (qrow_mins.cu) and the fused scan (dnj_scan.cu).
+// qrow_mins kernel (qrow_mins.cu) and the fused scan (dnj_scan.cu), and
+// the block reductions of its join body (dnj_join.cu, dnj_segment.cu).
 //
 // The u8 distance matrix is stored as u32 words, four cells per word in
 // little-endian byte lanes (cell c of a row is byte c % 4 of word
@@ -7,6 +8,9 @@
 //     q[c] = co * cell[r, c] - sd2[r] - sd2[c]   for c < r
 // and the block returns the minimum and the largest c at the minimum.
 // Arithmetic is int32 with two's-complement wrap (done in unsigned).
+// The row body reads through the read-only path: neither kernel writes
+// the cells or sd2.  dnj_segment.cu, whose join body writes both in the
+// same launch, keeps a row body of its own that reads through L2.
 
 #pragma once
 
@@ -28,6 +32,56 @@ __device__ __forceinline__ void take_better(int& best, int& bidx, int ob,
     best = ob;
     bidx = oi;
   }
+}
+
+// q = co * cell - a - b in int32 with two's-complement wrap
+__device__ __forceinline__ int qval(int co, int cell, int a, int b) {
+  return (int)((unsigned)co * (unsigned)cell - (unsigned)a - (unsigned)b);
+}
+
+// sum over the block, returned to every thread
+__device__ __forceinline__ int block_sum(int v) {
+  __shared__ int s[kWarps];
+  __shared__ int total;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(kFullMask, v, off);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) s[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += s[w];
+    total = t;
+  }
+  __syncthreads();
+  return total;
+}
+
+// (minimum, largest index at it) over the block, valid in thread 0;
+// (kIBig, -1) for a block with no entry
+__device__ __forceinline__ void block_best(int& v, int& x) {
+  __shared__ int sv[kWarps], sx[kWarps];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    take_better(v, x, __shfl_down_sync(kFullMask, v, off),
+                __shfl_down_sync(kFullMask, x, off));
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) {
+    sv[warp] = v;
+    sx[warp] = x;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? sv[lane] : kIBig;
+    x = lane < kWarps ? sx[lane] : -1;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      take_better(v, x, __shfl_down_sync(kFullMask, v, off),
+                  __shfl_down_sync(kFullMask, x, off));
+  }
+  __syncthreads();  // sv, sx free for the next call
 }
 
 // One block of kThreads threads scans the c < r prefix of row r in

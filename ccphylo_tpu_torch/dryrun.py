@@ -170,7 +170,7 @@ def run_stages() -> dict:
     Dq2 = _draw_u8(rng, nst, nst)
     out["in/Dq"], out["in/Dq2"] = Dq, Dq2
 
-    def s6():  # packed exact-int32 engine (dnj_scan)
+    def s6():  # packed exact-int32 engine (dnj_segment)
         rec = packed_engine.dnj_joins_packed(
             packed_engine.pack_words(Dq.copy(), dev), npk)
         for k, v in zip(PACKED_RECORDS, rec[:6]):

@@ -58,12 +58,20 @@ ENTRY_POINTS = {
         "dnj_join": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _P, _P],
     },
+    "dnj_segment": {
+        # words, n, sd2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats, t0,
+        # t1, m, G, scratch, flags, stream
+        "dnj_segment": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P, _I, _P],
+    },
 }
 # source stem -> {C function that launches nothing: argtypes}; each
 # returns an int of its own meaning (see `query`)
 QUERIES = {
     "dnj_scan": {"dnj_scan_max_blocks": []},
     "dnj_join": {"dnj_join_max_blocks": []},
+    # flags, n
+    "dnj_segment": {"dnj_segment_max_blocks": [_I, _I]},
 }
 
 # launches of each kernel since the last reset_launches(); qrow_mins on

@@ -17,17 +17,20 @@ the Newick bytes equal the host exact -b engine's.
 
 The join loop runs on the device between the fences of
 tree/segmenting.py (every SEG joins), the counterpart of the reference's
-device loop `_packed_segment`.  On a card a join is two launches on the
-current stream: the batch scan `dnj_scan` (ops/scan.py), which writes
-the picked pair (i, j) to a device buffer, and the join body `dnj_join`
-(ops/join.py), which reads it there; the join records stay on the
-device.  The Python loop only enqueues them: no value reaches the host
-between fences.  The plain versions (`scan="plain"`, `body="plain"`)
-read (i, j) on the host once per join, and so does the body on a CPU
-tensor, where that read is free.  Two TPU workarounds of the reference
-are not carried over: compile-cache shape bucketing (rows are padded to
-a multiple of 512 only) and the sibling-row rebuild of a word column (a
-byte column is written directly).
+device loop `_packed_segment`.  On a card, by default (`scan="segment"`),
+a segment is one launch of `dnj_segment` (ops/segment.py), every scan
+pass and join body of the segment in one persistent kernel; the join
+records stay on the device and the host does nothing between fences.
+`scan="fused"` keeps the loop of two launches a join: the batch scan
+`dnj_scan` (ops/scan.py), which writes the picked pair (i, j) to a
+device buffer, and the join body `dnj_join` (ops/join.py), which reads
+it there, both enqueued by a Python loop.  The plain versions
+(`scan="plain"`, `body="plain"`) read (i, j) on the host once per join,
+and so does every route on a CPU tensor, where that read is free.  Two
+TPU workarounds of the reference are not carried over: compile-cache
+shape bucketing (rows are padded to a multiple of 512 only) and the
+sibling-row rebuild of a word column (a byte column is written
+directly).
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ import torch
 from ..ops.join import dnj_join, dnj_join_plain, dnj_join_prepare
 from ..ops.scan import dnj_scan, dnj_scan_passes, dnj_scan_plain, \
     dnj_scan_prepare
+from ..ops.segment import dnj_segment, dnj_segment_plain, \
+    dnj_segment_prepare
 from ..ops.select import IBIG
 from ..utils.torchconfig import device as default_device
 from .segmenting import run_segmented
@@ -49,17 +54,23 @@ from .torch_engine import _host, _records_to_newick
 
 _CH = 512  # init row chunk
 
-# the batch scan of a join, by name: one launch per join; the
-# host-driven loop of passes over the qrow_mins kernel; the plain
+# the batch scan of a join, by name: "segment" runs each segment's
+# scans and bodies together, as SEGMENTS[body]; one launch per join;
+# the host-driven loop of passes over the qrow_mins kernel; the plain
 # PyTorch version (the reference of the tests and of the smoke run)
-SCANS = {"fused": dnj_scan, "passes": dnj_scan_passes,
+SCANS = {"segment": None, "fused": dnj_scan, "passes": dnj_scan_passes,
          "plain": dnj_scan_plain}
 # the join body, by name: the dnj_join kernel (its plain version on a
 # CPU tensor); the plain PyTorch version
 BODIES = {"kernel": dnj_join, "plain": dnj_join_plain}
+# the joins of a segment under scan="segment", by the body's name: one
+# dnj_segment launch (its plain version on a CPU tensor); the plain
+# loop of dnj_scan_plain and dnj_join_plain
+SEGMENTS = {"kernel": dnj_segment, "plain": dnj_segment_plain}
 # the kernel wrappers, with the step that checks their arguments and
 # allocates their buffers once per run
-_PREPARE = {dnj_scan: dnj_scan_prepare, dnj_join: dnj_join_prepare}
+_PREPARE = {dnj_scan: dnj_scan_prepare, dnj_join: dnj_join_prepare,
+            dnj_segment: dnj_segment_prepare}
 
 _STATE_KEYS = ("words", "sD2", "Q", "P", "seed", "I", "J", "DIJ2",
                "SDI2", "SDJ2", "stats")
@@ -201,7 +212,7 @@ def _ckpt_load(path, n, m, kbatch, device):
 
 
 def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
-                     hooks=None, scan: str = "fused",
+                     hooks=None, scan: str = "segment",
                      body: str | None = None):
     """All m-2 DNJ joins over the packed u8 matrix, in place.
 
@@ -211,8 +222,10 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
     the device of `words`, and the final words buffer.  `hooks`, if
     given, is passed to run_segmented; `scan` names the batch scan, one
     of SCANS, and `body` the join body, one of BODIES (identical
-    records).  `body` defaults to "kernel", and to "plain" with
-    scan="plain": the all-plain run, the oracle of the kernels.
+    records): with scan="segment" (the default) a segment runs as
+    SEGMENTS[body], one dnj_segment launch for "kernel".  `body`
+    defaults to "kernel", and to "plain" with scan="plain": the
+    all-plain run, the oracle of the kernels.
 
     CCPHYLO_TORCH_CKPT=/path/file.npz snapshots the state every
     CCPHYLO_TORCH_CKPT_EVERY_S seconds (default 300) at a fenced segment
@@ -224,7 +237,8 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
     assert 4 * W == n, "words must tile a square byte matrix"
     if body is None:
         body = "plain" if scan == "plain" else "kernel"
-    for name, val, table in (("scan", scan, SCANS), ("body", body, BODIES)):
+    bodies = SEGMENTS if scan == "segment" else BODIES
+    for name, val, table in (("scan", scan, SCANS), ("body", body, bodies)):
         if val not in table:
             raise ValueError(f"{name} must be one of {sorted(table)}, not "
                              f"{val!r}")
@@ -242,16 +256,23 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
               "SDJ2": z.clone(),
               "stats": torch.zeros(4, dtype=torch.int32, device=dev)}
         start = 0
-    scan_fn, body_fn = SCANS[scan], BODIES[body]
+    scan_fn, body_fn = SCANS[scan], BODIES.get(body)
+    seg_fn = SEGMENTS[body] if scan == "segment" else None
     if dev.type == "cuda":  # arguments checked, buffers made, once a run
+        if seg_fn in _PREPARE:
+            seg_fn = functools.partial(seg_fn, prep=_PREPARE[seg_fn](
+                *(st[k] for k in _STATE_KEYS), kbatch))
         if scan_fn in _PREPARE:
             scan_fn = functools.partial(scan_fn, prep=_PREPARE[scan_fn](
                 *(st[k] for k in _STATE_KEYS[:5]), kbatch))
-        if body_fn in _PREPARE:
+        if body_fn in _PREPARE and seg_fn is None:
             body_fn = functools.partial(body_fn, prep=_PREPARE[body_fn](
                 *(st[k] for k in _STATE_KEYS)))
 
     def seg_call(st, t0, t1):
+        if seg_fn is not None:
+            seg_fn(*(st[k] for k in _STATE_KEYS), t0, t1, m, kbatch)
+            return st
         for t in range(t0, t1):
             _one_join(st, t, m, kbatch, scan_fn, body_fn)
         return st
@@ -306,12 +327,20 @@ def limbs_host(I, J, DIJ2, SDI2, SDJ2, m: int, bytescale: float,
 def build_tree_packed(flat64: np.ndarray, n: int, names: list,
                       flag: int = 0, precision: int = 9,
                       bytescale: float = 1.0, device=None,
-                      scan: str = "fused", body: str | None = None) -> bytes:
+                      scan: str = "segment",
+                      body: str | None = None) -> bytes:
     """Packed-u8 DNJ on the device; Newick bytes (no ';').
 
     Loads quantize like loadPhy -b (round 0.5, phy.c:473-475); complete
-    matrices only (quantized storage cannot hold missing cells)."""
+    matrices only (quantized storage cannot hold missing cells).
+    `build_tree_packed.last_times` holds the host clock's seconds of the
+    last call's steps: "quantize" (the u8 matrix and its upload),
+    "engine" (`dnj_joins_packed`, which ends with a host read),
+    "limbs" (`limbs_host`, the records' copy to the host included) and
+    "newick"."""
     dev = default_device() if device is None else torch.device(device)
+    times = build_tree_packed.last_times = {}
+    t = time.perf_counter()
     npad = pad_packed(n)
     Dq = np.zeros((npad, npad), np.uint8)
     iu = np.tril_indices(n, -1)
@@ -319,10 +348,16 @@ def build_tree_packed(flat64: np.ndarray, n: int, names: list,
     qv = np.clip(qv, 0, 255).astype(np.uint8)
     Dq[(iu[0], iu[1])] = qv
     Dq[(iu[1], iu[0])] = qv
+    words = pack_words(Dq, dev)
+    times["quantize"], t = time.perf_counter() - t, time.perf_counter()
     I, J, DIJ2, SDI2, SDJ2, d_last2, _ = dnj_joins_packed(
-        pack_words(Dq, dev), n, scan=scan, body=body)
+        words, n, scan=scan, body=body)
+    times["engine"], t = time.perf_counter() - t, time.perf_counter()
     LI, LJ = limbs_host(I, J, DIJ2, SDI2, SDJ2, n, bytescale,
                         neg_limbs=bool(flag & 2))
     d_last = float(int(d_last2)) / (2.0 * float(bytescale))
-    return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
-                              precision)
+    times["limbs"], t = time.perf_counter() - t, time.perf_counter()
+    nwk = _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
+                             precision)
+    times["newick"] = time.perf_counter() - t
+    return nwk

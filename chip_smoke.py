@@ -17,31 +17,46 @@ exits non-zero, no exception is caught:
    `dnj_scan` and the join body `dnj_join` are held against
    `dnj_scan_plain` and `dnj_join_plain` here on an all-tie matrix, and
    in phases 3 and 4 on every join of a real run's prefix
-   (`CheckedScan`, `CheckedJoin`), where they are also timed;
+   (`CheckedScan`, `CheckedJoin`), where they are also timed; the
+   segment kernel `dnj_segment`, each of its flag sets (SEG_FLAGS: Q
+   in shared memory, the default, or read through L2),
+   against `dnj_segment_plain` at every boundary of CHECK_SEG joins
+   (`held_to_plain`), every state array, the flag sets timed in turns;
 3. main path: n = 2048 isolates of L = 1 Mbp, a clonal outbreak
    generated on the card from a seed, through the port's CLI seams on
    the host arrays the CLI hands them: `dist` (dist_cmd._batch_shared
    and _batch_pairwise; rows checked against the host numpy kernels)
    into `tree -m dnj -b` (tree_cmd._dispatch_build on the packed
-   engine's device loop, one dnj_scan and one dnj_join launch per join
-   and no host read between fences; Newick checked against the
-   host-driven passes over qrow_mins, the all-plain run and the host
-   exact -b engine).  The launch counts of the `kernels` line are this
-   phase's: the counters are set to 0 just before each path and read
-   just after it.  The kernel and the plain join body are timed in
-   turns (kernel, plain, plain, kernel), each with its passes and
-   launches; both kernels are held to their plain versions on every
-   join of the whole tree; `JoinProbe` runs one segment under
-   torch.cuda.set_sync_debug_mode("error") (a host read would raise)
-   and measures the card's ms per join of each kernel (CUDA events,
-   the launches queued behind a spin) and the host's enqueue us per
-   join;
+   engine's device loop: one dnj_segment launch per segment of
+   segmenting.SEG joins, no dnj_scan or dnj_join launch, no host read
+   between fences; its seconds split into quantization, engine, limbs
+   and Newick; Newick checked against the host-driven passes over
+   qrow_mins, the all-plain run and the host exact -b engine).  The
+   launch counts of the `kernels` line are this phase's: the counters
+   are set to 0 just before each path and read just after it, and each
+   kernel's entry names its path (KERNEL_PATH): dnj_segment and the
+   expansion kernels the main path (dist and the seam's tree);
+   dnj_scan, dnj_join the two-launch loop (scan "fused"); qrow_mins the
+   passes run.  In turns through
+   build_tree_packed: segment, two launches a join, the same, segment;
+   then the join body kernel, plain, plain, kernel; the engine alone in
+   turns the same way (`engine_turns`).  dnj_scan and dnj_join are held
+   to their plain versions on every join of the whole tree, dnj_segment
+   at every CHECK_SEG joins of it; `SegmentProbe` runs the first
+   segment under torch.cuda.set_sync_debug_mode("error") (a host read
+   would raise) and measures the card's ms per join (CUDA events, the
+   launch queued behind a spin) and the host's µs per segment;
+   `segment_breakdown` splits a segment's card time into the parts of
+   a join (the kernel's PROFILE clock counts);
 4. at scale: n = 32768 isolates of 100 kbp from the same outbreak
    model, through `dist` into the packed engine (a 1 GiB u8 matrix);
    dist rows are checked against the host kernels, the first joins
-   against an all-plain run, both kernels against their plain versions
-   on the first CHECKED_JOINS joins (their times there are the
-   `kernels` line's), and `JoinProbe` as in phase 3;
+   against an all-plain run, the engine alone in turns (segment,
+   two launches a join, the same, segment), dnj_scan and dnj_join
+   against their plain versions on the first CHECKED_JOINS joins (their
+   times there are the `kernels` line's), dnj_segment at every
+   CHECK_SEG joins of them (its first launch the `kernels` line's),
+   `SegmentProbe` and `segment_breakdown` as in phase 3;
 5. engines: the float64 device engines of all seven tree methods
    (tree/torch_engine.py, tree/hclust_engine.py) on phase 3's integer
    SNP matrix as a double-precision matrix, through
@@ -118,15 +133,14 @@ exits non-zero, no exception is caught:
    CCPHYLO_TORCH_PROFILE=<dir>, side by side with the same tree
    untraced: each writes a torch.profiler Chrome trace whose `kernel`
    events name the kernels it runs (expand_shared_kernel;
-   dnj_scan_kernel and dnj_join_kernel);
+   dnj_segment_kernel);
 10. dryrun: ccphylo_tpu_torch/dryrun.py, the compile check and
    dry run: entry()'s SNP matrix on the card against CPU tensors; with
    one card, dryrun_multichip(2) refused before any process starts;
    dryrun_multichip(1) on the card (NCCL), the same on CPU tensors
    (gloo) and `python -m ccphylo_tpu_torch.dryrun`, side by side:
    every stage's records equal, the rank's launches of
-   snp_expand_shared, dnj_scan, dnj_join and qrow_mins through slots
-   above 0,
+   snp_expand_shared, dnj_segment and qrow_mins through slots above 0,
    each stage's seconds printed.
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
@@ -164,7 +178,8 @@ import torch
 from ccphylo_tpu_torch import dryrun
 from ccphylo_tpu_torch.cli import dist_cmd, tree_cmd
 from ccphylo_tpu_torch.io.qseqs import Name
-from ccphylo_tpu_torch.ops import build, join, matdist_torch, scan, snp, snp_torch
+from ccphylo_tpu_torch.ops import build, join, matdist_torch, scan, segment, \
+    snp, snp_torch
 from ccphylo_tpu_torch.ops.veccmp import cmp_mats, get_veccmp, p_chisqr
 from ccphylo_tpu_torch.parallel import multihost
 from ccphylo_tpu_torch.parallel import sharded_dnj as sd
@@ -192,8 +207,13 @@ MISSING_METHODS = ("dnj", "upgma")  # run on the matrix with missing cells
 EXP_ROWS, EXP_WORDS = 2048, 2048  # one genome chunk of the main path
 PREFIX_JOINS = 1024  # plain-scan check of the phase-4 run
 CHECKED_JOINS = 256  # joins of a run on which the kernels are held to plain
-PROBE_JOINS = 64     # joins of each window of `JoinProbe`
+CHECK_SEG = 64       # joins of each dnj_segment launch held to plain
+SEG_SPIN = 2_000_000  # cycles the card spins before each timed launch
 PROBE_SPIN = 200_000_000  # cycles the card spins before a probe window
+# dnj_segment's flag sets, timed in turns against each other: Q copied
+# to shared memory (the default) or read through L2 (what runs where Q
+# does not fit in shared memory)
+SEG_FLAGS = {"Q": segment.STAGE_Q, "no Q": 0}
 KBATCH = 128         # candidate rows per scan pass (the engine's default)
 X_SCALE = 8192       # cache rows of the row-cache engine at n = N_SCALE
 STREAM_JOINS = 4096  # its joins held against the packed engine's
@@ -219,9 +239,29 @@ KERNEL_META = {
     # the jnp join body inside the device loop _packed_segment (no Pallas)
     "dnj_join": ("ccphylo_tpu_torch/csrc/dnj_join.cu",
                  "ccphylo_tpu/tree/packed_engine.py:215"),
+    # the device loop of joins _packed_segment itself: scan and body
+    "dnj_segment": ("ccphylo_tpu_torch/csrc/dnj_segment.cu",
+                    "ccphylo_tpu/tree/packed_engine.py:450"),
     # qrow_mins reading its rows through the slot map of a row cache
     "qrow_mins_slots": ("ccphylo_tpu_torch/csrc/qrow_mins.cu",
                         "ccphylo_tpu/ops/scan_pallas.py:49"),
+}
+# the path whose run counts a kernel's launches in the `kernels` line,
+# where it is not the main path (dist, then tree -m dnj -b through
+# _dispatch_build): (its key in the results, its description)
+KERNEL_PATH = {
+    "qrow_mins": (("path_launches", "passes"),
+                  "tree -m dnj -b at n = 2048, build_tree_packed "
+                  "scan=\"passes\""),
+    "dnj_scan": (("path_launches", "fused"),
+                 "tree -m dnj -b at n = 2048, build_tree_packed "
+                 "scan=\"fused\" (two launches a join)"),
+    "dnj_join": (("path_launches", "fused"),
+                 "tree -m dnj -b at n = 2048, build_tree_packed "
+                 "scan=\"fused\" (two launches a join)"),
+    "qrow_mins_slots": (("streamed_launches",),
+                        "the row-cache engine at n = 32768 (phase "
+                        "streamed)"),
 }
 
 
@@ -486,89 +526,220 @@ def checked_prefix(words8, n, joins, timed, res, key):
     return s, sj
 
 
-class JoinProbe:
-    """A scan and a body for pe.SCANS / pe.BODIES that run the engine's
-    own kernels (dnj_scan, dnj_join, with the buffers the engine
-    prepares once a run) over one segment of 3 W joins, W =
-    PROBE_JOINS, after the card has finished the run's init, and
-    measure it:
-    - the whole segment runs under torch.cuda.set_sync_debug_mode
-      ("error"), set at its first scan and reset after its last body,
-      so the fence after it is outside: any host read raises;
-    - joins [W, 2W): the host's clock over them is its enqueue time
-      (a launch does not wait for the card while the queue has room);
-    - joins [2W, 3W) are enqueued behind a spin too, with CUDA events
-      around each launch: the card's ms per join of each kernel."""
+def new_state(words8, n):
+    """The packed engine's state after its init, on a copy of the byte
+    matrix `words8`."""
+    words = words8.clone().view(torch.int32)
+    sD2, Q, P, seed = pe._packed_init(words, n)
+    z = torch.zeros(words.shape[0], dtype=torch.int32, device=words.device)
+    return {"words": words, "sD2": sD2, "Q": Q, "P": P, "seed": seed,
+            "I": z, "J": z.clone(), "DIJ2": z.clone(), "SDI2": z.clone(),
+            "SDJ2": z.clone(),
+            "stats": torch.zeros(4, dtype=torch.int32, device=words.device)}
 
-    def __init__(self, W=PROBE_JOINS):
-        self.W, self.t = W, 0
-        self.ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                   for _ in range(W)]
-        self.h = [0.0, 0.0]
 
-    def scan(self, *a, prep=None):
-        t, W = self.t, self.W
-        if t == 0:
-            # the run's init done first: a queue still full of its work
-            # would hold back the host's launches in window [W, 2W)
+def plain_joins(st, t0, t1, n, nbytes):
+    """dnj_segment_plain on state `st` over joins [t0, t1) (its scan and
+    body, join by join), each join's bytes added to nbytes[0]: the
+    scan's rows (`scan_bytes`) and the body's (`join_bytes`)."""
+    npad = st["words"].shape[0]
+    for t in range(t0, t1):
+        m_t = n - t
+        scanned = []
+
+        def recording(rows, co, words, sd2):
+            scanned.append(rows)
+            return scan.qrow_mins_plain(rows, co, words, sd2)
+
+        res = scan.dnj_scan_passes(st["words"], st["sD2"], st["Q"], st["P"],
+                                   st["seed"], m_t, 2 * (m_t - 2), KBATCH,
+                                   qrow=recording)
+        Q0 = st["Q"].clone()
+        join.dnj_join_plain(*(st[k] for k in pe._STATE_KEYS), res, t, m_t)
+        i, j = res[:2].tolist()
+        rows = torch.cat(scanned) if scanned else Q0.new_zeros(0)
+        nbytes[0] += scan_bytes(rows, m_t) + 16 + join_bytes(
+            npad, m_t, i, j, int((st["Q"] != Q0).sum()))
+
+
+def state_err(a: dict, b: dict) -> int:
+    return max(words_err(a["words"], b["words"]),
+               max_abs_err([a[k] for k in pe._STATE_KEYS[1:]],
+                           [b[k] for k in pe._STATE_KEYS[1:]]))
+
+
+def held_to_plain(words8, n, joins, flag_sets, res, key):
+    """dnj_segment with each of `flag_sets` (names of SEG_FLAGS) held to
+    the plain loop over the first `joins` joins of the engine's run on a
+    copy of `words8`: one launch per CHECK_SEG joins, every state array
+    equal at every boundary.  Each launch is timed on the card (CUDA
+    events, queued behind a spin), the flag sets in turns (forward on
+    even segments, backward on odd); so is the plain version on the
+    first segment, on a copy.  The bound counts each join's bytes as
+    `scan_bytes` and `join_bytes` do."""
+    ref = new_state(words8, n)
+    sts = {f: {k: v.clone() for k, v in ref.items()} for f in flag_sets}
+    preps = {f: segment.dnj_segment_prepare(
+        *(sts[f][k] for k in pe._STATE_KEYS), KBATCH, flags=SEG_FLAGS[f])
+        for f in flag_sets}
+    seg_ms = {f: [] for f in flag_sets}
+    seg_bytes, err, plain_ms = [], 0, None
+    for x, t0 in enumerate(range(0, joins, CHECK_SEG)):
+        t1 = min(t0 + CHECK_SEG, joins)
+        if plain_ms is None:
+            tmp = {k: v.clone() for k, v in ref.items()}
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            segment.dnj_segment_plain(*(tmp[k] for k in pe._STATE_KEYS),
+                                      t0, t1, n, KBATCH)
+            b.record()
             torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-        if t == 2 * W:
-            torch.cuda._sleep(PROBE_SPIN)
-        if t == W:
-            self.h[0] = time.perf_counter()
-        if t >= 2 * W:
-            self.ev[t - 2 * W][0].record()
-        r = scan.dnj_scan(*a, prep=prep)
-        if t >= 2 * W:
-            self.ev[t - 2 * W][1].record()
-        return r
+            plain_ms = a.elapsed_time(b)
+            del tmp
+        nbytes = [0]
+        plain_joins(ref, t0, t1, n, nbytes)
+        seg_bytes.append(nbytes[0])
+        ev = {}
+        for f in (flag_sets if x % 2 == 0 else flag_sets[::-1]):
+            ev[f] = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            torch.cuda._sleep(SEG_SPIN)
+            ev[f][0].record()
+            segment.dnj_segment(*(sts[f][k] for k in pe._STATE_KEYS), t0, t1,
+                                n, KBATCH, prep=preps[f])
+            ev[f][1].record()
+        torch.cuda.synchronize()
+        for f in flag_sets:
+            seg_ms[f].append(ev[f][0].elapsed_time(ev[f][1]))
+            e = state_err(sts[f], ref)
+            err = max(err, e)
+            assert e == 0, f"dnj_segment ({f}) differs from its plain " \
+                           f"version after joins [{t0}, {t1}) at n={n}"
+    out = res[key] = {
+        "joins": joins, "segments": len(seg_bytes), "max_abs_err": err,
+        "flags": {f: preps[f][2] for f in flag_sets},
+        "ms_per_join": {f: sum(v) / joins for f, v in seg_ms.items()},
+        "first_segment_ms": {f: v[0] for f, v in seg_ms.items()},
+        "first_segment_plain_ms": plain_ms,
+        "first_segment_bound_ms": bytes_ms(seg_bytes[0]),
+        "bound_ms_per_join": bytes_ms(sum(seg_bytes)) / joins}
+    log(f"dnj_segment equals dnj_segment_plain at every boundary of "
+        f"{CHECK_SEG} joins over the first {joins} joins at n={n} "
+        f"({len(seg_bytes)} launches a flag set); card ms per join: "
+        + ", ".join(f"{f} {v:.5f}" for f, v in out["ms_per_join"].items())
+        + f"; bound {out['bound_ms_per_join']:.7f}; first segment "
+        f"plain {plain_ms:.3f} ms")
+    return out
 
-    def body(self, *a, prep=None):
-        join.dnj_join(*a, prep=prep)
-        t, W = self.t, self.W
-        if t >= 2 * W:
-            self.ev[t - 2 * W][2].record()
-        if t == 2 * W - 1:
-            self.h[1] = time.perf_counter()
-        if t == 3 * W - 1:
-            torch.cuda.set_sync_debug_mode(0)
-        self.t += 1
 
-    def run(self, words, n) -> dict:
-        pe.SCANS["probe"], pe.BODIES["probe"] = self.scan, self.body
-        pe._PREPARE[self.scan] = scan.dnj_scan_prepare
-        pe._PREPARE[self.body] = join.dnj_join_prepare
-        build.reset_launches()
+def segment_breakdown(words8, n, joins, flag_sets, res, key):
+    """Where a join's time goes in dnj_segment: for each of `flag_sets`,
+    one launch over the first `joins` joins of a run on a copy of
+    `words8` with the PROFILE flag, timed by CUDA events behind a spin;
+    the SM clock cycles block 0 spent in each part of a join
+    (segment.PHASES, its waits at barriers included) split that time."""
+    out = res[key] = {}
+    for f in flag_sets:
+        st = new_state(words8, n)
+        prep = segment.dnj_segment_prepare(
+            *(st[k] for k in pe._STATE_KEYS), KBATCH,
+            flags=SEG_FLAGS[f] | segment.PROFILE)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SEG_SPIN)
+        a.record()
+        segment.dnj_segment(*(st[k] for k in pe._STATE_KEYS), 0, joins, n,
+                            KBATCH, prep=prep)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        cyc = segment.segment_profile(prep)
+        total = sum(cyc.values())
+        out[f] = {"joins": joins, "ms_per_join": ms / joins,
+                  "passes_per_join": int(st["stats"][0]) / joins,
+                  "us_per_join": {p: 1e3 * ms * c / total / joins
+                                  for p, c in cyc.items()}}
+        log(f"dnj_segment ({f}) n={n}, joins 0-{joins}: "
+            f"{1e3 * ms / joins:.2f} us per join, "
+            f"{out[f]['passes_per_join']:.3f} passes; " + ", ".join(
+                f"{p} {v:.2f}" for p, v in out[f]["us_per_join"].items()))
+        del st
+    return out
+
+
+class SegmentProbe:
+    """A SEGMENTS entry for pe.dnj_joins_packed that runs the engine's own
+    dnj_segment launch (with the buffers the engine prepares once a run)
+    on the first segment of a run, after the card has finished the run's
+    init, and measures it: under torch.cuda.set_sync_debug_mode("error")
+    (any host read raises), queued behind a spin, with CUDA events
+    around the launch (the card's ms per join) and the host's clock
+    around the wrapper's call (its µs per segment)."""
+
+    def __init__(self):
+        self.ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        self.host_s, self.joins = None, 0
+
+    def __call__(self, *a, prep=None):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
         try:
-            run_prefix(words, n, 3 * self.W, "probe", "probe")
+            torch.cuda._sleep(PROBE_SPIN)
+            self.ev[0].record()
+            h0 = time.perf_counter()
+            segment.dnj_segment(*a, prep=prep)
+            self.host_s = time.perf_counter() - h0
+            self.ev[1].record()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-            del pe.SCANS["probe"], pe.BODIES["probe"]
-            del pe._PREPARE[self.scan], pe._PREPARE[self.body]
-        W = self.W
-        assert build.launches["dnj_scan"] == build.launches["dnj_join"] \
-            == 3 * W, build.launches
-        scan_ms = [a.elapsed_time(b) for a, b, _ in self.ev]
-        join_ms = [b.elapsed_time(c) for _, b, c in self.ev]
-        window = self.ev[0][0].elapsed_time(self.ev[-1][2])
-        return {"joins": 3 * W, "sync_debug_error_joins": 3 * W,
-                "host_enqueue_us_per_join": 1e6 * (self.h[1] - self.h[0]) / W,
-                "scan_ms_per_join": sum(scan_ms) / W,
-                "join_ms_per_join": sum(join_ms) / W,
-                "join_ms_max": max(join_ms),
-                "device_ms_per_join": window / W}
+        self.joins = a[12] - a[11]
+
+    def run(self, words, n, joins) -> dict:
+        pe.SEGMENTS["probe"] = self
+        pe._PREPARE[self] = segment.dnj_segment_prepare
+        build.reset_launches()
+        try:
+            run_prefix(words, n, joins, "segment", "probe")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del pe.SEGMENTS["probe"], pe._PREPARE[self]
+        assert build.launches["dnj_segment"] == 1 and self.joins == joins \
+            and build.launches["dnj_scan"] == build.launches["dnj_join"] \
+            == 0, build.launches
+        return {"joins": joins, "sync_debug_error_joins": joins,
+                "card_ms_per_join": self.ev[0].elapsed_time(self.ev[1])
+                / joins,
+                "host_us_per_segment": 1e6 * self.host_s}
 
 
-def probe_joins(words8, n, res, key):
-    p = res[key] = JoinProbe().run(words8.clone().view(torch.int32), n)
-    log(f"device loop n={n}: {p['joins']} joins in one segment under "
-        f"set_sync_debug_mode('error') (no host read); host enqueue "
-        f"{p['host_enqueue_us_per_join']:.1f} us per join; on the card "
-        f"dnj_scan {p['scan_ms_per_join']:.4f} ms, dnj_join "
-        f"{p['join_ms_per_join']:.4f} ms (max {p['join_ms_max']:.4f}), "
-        f"{p['device_ms_per_join']:.4f} ms per join in all")
+def probe_segment(words8, n, res, key):
+    joins = min(segmenting.SEG, n - 2)
+    p = res[key] = SegmentProbe().run(words8.clone().view(torch.int32), n,
+                                      joins)
+    log(f"device loop n={n}: one dnj_segment launch of {joins} joins under "
+        f"set_sync_debug_mode('error') (no host read); on the card "
+        f"{p['card_ms_per_join']:.5f} ms per join; the host's call "
+        f"{p['host_us_per_segment']:.1f} us per segment")
     return p
+
+
+def engine_turns(words8, n, res, key):
+    """The packed engine alone on copies of `words8`, in turns: one
+    dnj_segment launch a segment, the loop of two launches a join
+    (scan "fused"), the same again, one launch a segment; joins/s of
+    each (init and the final stats read included)."""
+    runs = res[key] = []
+    for scan_name in ("segment", "fused", "fused", "segment"):
+        words = words8.clone().view(torch.int32)
+        build.reset_launches()
+        _, t = synced(lambda: pe.dnj_joins_packed(words, n, kbatch=KBATCH,
+                                                  scan=scan_name))
+        runs.append({"scan": scan_name, "s": t, "joins_per_s": (n - 2) / t,
+                     "launches": {k: v for k, v in build.launches.items()
+                                  if v}})
+        del words
+    log(f"packed engine alone n={n}, in turns: " + "; ".join(
+        f"{r['scan']} {r['joins_per_s']:,.1f} joins/s" for r in runs))
+    return runs
 
 
 # ---------------------------------------------------------------------
@@ -670,10 +841,11 @@ def phase_kernels(dev, g, res):
         (rmin, rarg), scan.qrow_mins_plain(rows, 10, words, sd2)))
     del words, sd2
 
-    # the fused scan and the join body from an all-tie matrix (every
-    # cell 5, so every cached Q ties): the whole engine run at n = 2048,
-    # then the first joins at n = 32768, each join against the plain
-    # versions
+    # the fused scan, the join body and the segment kernel (each of its
+    # flag sets) from an all-tie matrix (every cell 5, so every cached Q
+    # ties): the whole engine run at n = 2048, then the first joins at
+    # n = 32768, against the plain versions at every join (scan, body)
+    # or every CHECK_SEG joins (segment)
     for n, joins in ((N_DIST, N_DIST - 2), (N_SCALE, CHECKED_JOINS)):
         tie = torch.full((n, n), 5, dtype=torch.uint8, device=dev)
         tie.fill_diagonal_(0)
@@ -681,6 +853,9 @@ def phase_kernels(dev, g, res):
                                f"scan_check_ties_{n}")
         err["dnj_scan"] = max(err["dnj_scan"], s["max_abs_err"])
         err["dnj_join"] = max(err["dnj_join"], sj["max_abs_err"])
+        h = held_to_plain(tie, n, joins, list(SEG_FLAGS), res,
+                          f"segment_check_ties_{n}")
+        err["dnj_segment"] = max(err["dnj_segment"], h["max_abs_err"])
         del tie
     res["max_abs_err"] = err
     assert all(v == 0 for v in err.values()), err
@@ -788,9 +963,12 @@ def phase_main_path(dev, g, res):
     nwk, t_tree = synced(lambda: tree_cmd._dispatch_build(
         flat, n, names(), "dnj", 0, 9, "b", 1.0))
     res["main_path_launches"] = dict(build.launches)
-    assert build.launches["dnj_scan"] == build.launches["dnj_join"] \
-        == n - 2, build.launches
-    fused_passes = int(pe.dnj_joins_packed.last_stats[0])
+    assert build.launches["dnj_segment"] == -(-(n - 2) // segmenting.SEG) \
+        and build.launches["dnj_scan"] == build.launches["dnj_join"] == 0, \
+        build.launches
+    seg_passes = int(pe.dnj_joins_packed.last_stats[0])
+    split = res["tree_seam_split_s"] = dict(pe.build_tree_packed.last_times)
+    split["other"] = t_tree - sum(split.values())
     pairs = n * (n - 1) / 2
     res["dist_shared_s"], res["dist_pairwise_s"] = t_dist, t_pair
     res["dist_sample_pairs_per_s"] = pairs / t_dist
@@ -800,9 +978,9 @@ def phase_main_path(dev, g, res):
         f"sample-pairs/s; per-sample masks: {t_pair:.3f} s, "
         f"{pairs / t_pair:,.0f} sample-pairs/s")
     log(f"tree seam -m dnj -b: {t_tree:.3f} s, {(n - 2) / t_tree:,.0f} "
-        f"joins/s, scan passes {fused_passes}, dnj_scan launches "
-        f"{build.launches['dnj_scan']}, dnj_join launches "
-        f"{build.launches['dnj_join']}")
+        f"joins/s, scan passes {seg_passes}, dnj_segment launches "
+        f"{build.launches['dnj_segment']} (dnj_scan, dnj_join: 0); "
+        "seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
 
     def launched():
         return {k: v for k, v in build.launches.items() if v}
@@ -814,41 +992,61 @@ def phase_main_path(dev, g, res):
         flat, n, names(), scan="passes"))
     assert nwk == nwk_passes, "Newick differs from the passes run"
     assert build.launches["dnj_scan"] == 0
-    res["main_path_launches"]["qrow_mins"] = build.launches["qrow_mins"]
+    res["path_launches"] = {"passes": launched()}
     runs = res["tree_runs"] = [
-        {"scan": "fused", "body": "kernel", "s": t_tree,
-         "passes": fused_passes, "launches": res["main_path_launches"]},
+        {"scan": "segment", "body": "kernel", "s": t_tree,
+         "passes": seg_passes, "launches": res["main_path_launches"],
+         "split_s": split},
         {"scan": "passes", "body": "kernel", "s": t,
          "passes": int(pe.dnj_joins_packed.last_stats[0]),
          "launches": launched()}]
-    # the join body in turns: kernel, plain, plain, kernel
-    for body in ("kernel", "plain", "plain", "kernel"):
+    # in turns through build_tree_packed (host work included): the loop
+    # of a segment (one dnj_segment launch; two launches a join, scan
+    # "fused"), then the join body (kernel, plain) on the two-launch loop
+    for scan_name, body in (("segment", "kernel"), ("fused", "kernel"),
+                            ("fused", "kernel"), ("segment", "kernel"),
+                            ("fused", "kernel"), ("fused", "plain"),
+                            ("fused", "plain"), ("fused", "kernel")):
         build.reset_launches()
         out, t = synced(lambda: pe.build_tree_packed(
-            flat, n, names(), body=body))
+            flat, n, names(), scan=scan_name, body=body))
         assert out == nwk
-        runs.append({"scan": "fused", "body": body, "s": t,
+        runs.append({"scan": scan_name, "body": body, "s": t,
                      "passes": int(pe.dnj_joins_packed.last_stats[0]),
-                     "launches": launched()})
+                     "launches": launched(),
+                     "split_s": dict(pe.build_tree_packed.last_times)})
+    # the launches of the two-launch loop, for the `kernels` line
+    res["path_launches"]["fused"] = runs[3]["launches"]
+    assert runs[3]["launches"]["dnj_scan"] == n - 2
     for r in runs:
         r["joins_per_s"] = (n - 2) / r["s"]
         log(f"tree n={n} scan={r['scan']} body={r['body']}: {r['s']:.3f} "
             f"s, {r['joins_per_s']:,.1f} joins/s, {r['passes']} passes "
             f"({r['passes'] / (n - 2):.3f} per join), launches "
-            f"{r['launches']}")
+            f"{r['launches']}" + ("" if "split_s" not in r else
+                                  "; engine " + f"{r['split_s']['engine']:.4f}"
+                                  " s"))
 
-    # dnj_scan and dnj_join against their plain versions on every join
-    # of this tree, timed on the first join of each kind; then where a
-    # join's time goes on the card and on the host, with no host read
     D8 = torch.from_numpy(np.clip(Dh, 0, 255).astype(np.uint8)).to(dev)
     D8 = torch.nn.functional.pad(D8, (0, pe.pad_packed(n) - n,
                                       0, pe.pad_packed(n) - n))
+    engine_turns(D8, n, res, f"engine_turns_{n}")
+    # dnj_scan and dnj_join against their plain versions on every join
+    # of this tree, timed on the first join of each kind; dnj_segment
+    # against its plain version at every boundary of CHECK_SEG joins;
+    # then one segment's card time and host time, with no host read
     s, sj = checked_prefix(D8, n, n - 2, True, res, f"scan_check_{n}")
     assert all(sj["kinds"].values()), sj["kinds"]
     err = res.setdefault("max_abs_err", {})
     for name, x in (("dnj_scan", s), ("dnj_join", sj)):
         err[name] = max(err.get(name, 0), x["max_abs_err"])
-    probe_joins(D8, n, res, f"join_probe_{n}")
+    h = held_to_plain(D8, n, n - 2, list(SEG_FLAGS), res,
+                      f"segment_check_{n}")
+    err["dnj_segment"] = max(err.get("dnj_segment", 0), h["max_abs_err"])
+    probe_segment(D8, n, res, f"segment_probe_{n}")
+    segment_breakdown(D8, n, min(segmenting.SEG, n - 2),
+                      list(SEG_FLAGS),
+                      res, f"segment_breakdown_{n}")
     del D8
 
     # the device share of dist: snp_matrix on sequences already on the card
@@ -918,20 +1116,23 @@ def phase_scale(dev, g, res):
     words = D8.clone().view(torch.int32)
     build.reset_launches()
     out, t = synced(lambda: pe.dnj_joins_packed(words, n, kbatch=KBATCH))
-    launches = build.launches["dnj_scan"]
-    assert launches == build.launches["dnj_join"] == n - 2 \
-        and build.launches["qrow_mins"] == 0, build.launches
+    launches = build.launches["dnj_segment"]
+    assert launches == -(-(n - 2) // segmenting.SEG) \
+        and build.launches["dnj_scan"] == build.launches["dnj_join"] \
+        == build.launches["qrow_mins"] == 0, build.launches
     I, J = out[0].cpu().numpy()[:n - 2], out[1].cpu().numpy()[:n - 2]
     m_t = n - np.arange(n - 2)
     assert ((J >= 0) & (J < I) & (I < m_t)).all(), "bad join records"
     res["scale_n"], res["scale_s"] = n, t
     res["scale_joins_per_s"] = (n - 2) / t
-    res["scale_scan_launches"] = launches
+    res["scale_segment_launches"] = launches
     res["scale_scan_passes"] = int(pe.dnj_joins_packed.last_stats[0])
     log(f"packed engine n={n}: {t:.1f} s, {(n - 2) / t:,.1f} joins/s, "
-        f"{launches} dnj_scan and dnj_join launches each, "
+        f"{launches} dnj_segment launches, "
         f"{res['scale_scan_passes']} passes "
         f"({res['scale_scan_passes'] / (n - 2):.3f} per join)")
+    del words
+    engine_turns(D8, n, res, f"engine_turns_{n}")
 
     # dnj_scan and dnj_join against their plain versions on the first
     # joins of this matrix, timed on the first join of each kind (scan:
@@ -944,7 +1145,19 @@ def phase_scale(dev, g, res):
         res.setdefault("kernel_ms", {})[name] = (x["ms"], x["plain_ms"])
         res.setdefault("bound_ms", {})[name] = x["bound_ms"]
         err[name] = max(err.get(name, 0), x["max_abs_err"])
-    probe_joins(D8, n, res, f"join_probe_{n}")
+    # dnj_segment the same way at every boundary of CHECK_SEG joins; its
+    # first launch, of the default flags, is the `kernels` line's
+    h = held_to_plain(D8, n, CHECKED_JOINS, list(SEG_FLAGS), res,
+                      f"segment_check_{n}")
+    err["dnj_segment"] = max(err.get("dnj_segment", 0), h["max_abs_err"])
+    default = next(f for f, v in SEG_FLAGS.items() if v == segment.FLAGS)
+    res["kernel_ms"]["dnj_segment"] = (h["first_segment_ms"][default],
+                                       h["first_segment_plain_ms"])
+    res["bound_ms"]["dnj_segment"] = h["first_segment_bound_ms"]
+    probe_segment(D8, n, res, f"segment_probe_{n}")
+    segment_breakdown(D8, n, segmenting.SEG,
+                      list(SEG_FLAGS),
+                      res, f"segment_breakdown_{n}")
 
     # the first joins again with the plain scan, on the untouched matrix
     k = PREFIX_JOINS
@@ -1015,7 +1228,7 @@ def phase_streamed(dev, g, res, D8=None):
 
     # the packed engine's first joins on the same matrix, timed
     prefix, t_packed = synced(lambda: run_prefix(
-        D8.clone().view(torch.int32), n, joins, "fused"))
+        D8.clone().view(torch.int32), n, joins, "segment"))
     out["packed_joins_per_s"] = joins / t_packed
     log(f"packed engine n={n}, first {joins} joins: {t_packed:.2f} s, "
         f"{joins / t_packed:,.1f} joins/s")
@@ -1942,7 +2155,7 @@ def cli_trace(d, env, fsas, dist17):
     tree_args = ["tree", "-m", "dnj", "-b", "-i", phy]
     runs = {"dist": (["dist", "-r", "tpl1", "-f", "17", "-i"] + fsas,
                      ("expand_shared_kernel",)),
-            "tree": (tree_args, ("dnj_scan_kernel", "dnj_join_kernel"))}
+            "tree": (tree_args, ("dnj_segment_kernel",))}
     jobs = {cmd: (args, dict(env, CCPHYLO_TORCH_PROFILE=os.path.join(
         d, "prof_" + cmd))) for cmd, (args, _) in runs.items()}
     jobs["tree untraced"] = (tree_args, env)
@@ -2071,7 +2284,7 @@ def phase_dryrun(dev, res):
     CPU tensors (gloo) and the command line `python -m
     ccphylo_tpu_torch.dryrun`: every stage's records of the card's run
     equal the CPU run's, and its rank launched snp_expand_shared,
-    dnj_scan and qrow_mins through slots."""
+    dnj_segment and qrow_mins through slots."""
     out = res["dryrun"] = {"build_s": build.build_all()}
     fn, args = dryrun.entry(dev)
     build.reset_launches()
@@ -2114,8 +2327,7 @@ def phase_dryrun(dev, res):
                           for k in dryrun.STAGES}
     out["launches"] = {k[len("launches/"):]: int(v) for k, v in card.items()
                        if k.startswith("launches/")}
-    for k in ("snp_expand_shared", "dnj_scan", "dnj_join",
-              "qrow_mins_slots"):
+    for k in ("snp_expand_shared", "dnj_segment", "qrow_mins_slots"):
         assert out["launches"][k] > 0, out["launches"]
     log(f"dry run: entry() {out['entry_s']:.4f} s, equal to its CPU "
         f"result; dryrun_multichip(1) on the card equals it on CPU tensors "
@@ -2184,10 +2396,12 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         ms, plain = res["kernel_ms"][name]
-        counts = res["streamed_launches" if name == "qrow_mins_slots"
-                     else "main_path_launches"]
+        keys, path = KERNEL_PATH.get(name, (("main_path_launches",),
+                                            "main"))
+        counts = functools.reduce(lambda d, k: d[k], keys, res)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "path": path,
+                        "launches": counts[name],
                         "max_abs_err": res["max_abs_err"][name],
                         "ms": ms, "plain_ms": plain,
                         "bound_ms": res["bound_ms"][name],

@@ -1,9 +1,10 @@
 """The port's packed exact-integer DNJ engine
 (ccphylo_tpu_torch/tree/packed_engine.py, plain scan on the CPU) against
 the JAX engine ccphylo_tpu.tree.packed_engine and the host exact -b
-engine of both packages, with each of the engine's scans (`fused`, one
-launch per join; `passes`, the host-driven loop over qrow_mins; `plain`)
-and join bodies (`kernel`, one launch per join; `plain`).
+engine of both packages, with each of the engine's scans (`segment`,
+one launch per segment of joins, the default; `fused`, one launch per
+join; `passes`, the host-driven loop over qrow_mins; `plain`) and join
+bodies (`kernel`, one launch per join or per segment; `plain`).
 Everything compared is an integer or the bytes of a Newick string, so
 every comparison is bit-exact (tolerance 0)."""
 
@@ -107,29 +108,37 @@ def test_unknown_body_is_refused():
 
 def test_records_stay_tensors_and_default_body(monkeypatch):
     """The engine keeps I and J as tensors on the device of `words` (the
-    records are never copied to the host between fences), runs the
-    kernel body by default and the plain body with the plain scan."""
+    records are never copied to the host between fences); by default it
+    runs each segment as one call of the segment kernel's wrapper, with
+    scan="fused" the kernel body once a join, and the plain body with
+    the plain scan."""
     n = 40
     rng = np.random.RandomState(3)
     Dq = _square(rng.randint(0, 30, n * (n - 1) // 2).astype(np.uint8), n,
                  tpe.pad_packed(n))
     seen = []
 
-    def spy(name):
-        fn = tpe.BODIES[name]
+    def spy(table, name):
+        fn = getattr(tpe, table)[name]
 
         def body(*a, **kw):
-            seen.append((name, type(a[5]), type(a[6])))
+            seen.append((table, name, type(a[5]), type(a[6])))
             return fn(*a, **kw)
         return body
 
-    monkeypatch.setattr(tpe, "BODIES", {k: spy(k) for k in tpe.BODIES})
+    for table in ("BODIES", "SEGMENTS"):
+        monkeypatch.setattr(tpe, table, {k: spy(table, k)
+                                         for k in getattr(tpe, table)})
     ref = _port(Dq, n, scan="plain")
-    assert {s[0] for s in seen} == {"plain"}
+    assert {s[:2] for s in seen} == {("BODIES", "plain")}
     seen.clear()
     _assert_same(_port(Dq, n), ref)
-    assert {s[0] for s in seen} == {"kernel"} and len(seen) == n - 2
-    assert {s[1:] for s in seen} == {(torch.Tensor, torch.Tensor)}
+    assert [s[:2] for s in seen] == [("SEGMENTS", "kernel")]  # one segment
+    seen.clear()
+    _assert_same(_port(Dq, n, scan="fused"), ref)
+    assert {s[:2] for s in seen} == {("BODIES", "kernel")} \
+        and len(seen) == n - 2
+    assert {s[2:] for s in seen} == {(torch.Tensor, torch.Tensor)}
 
 
 def test_kbatch_invariance():
@@ -216,7 +225,9 @@ def test_resume_from_checkpoint(tmp_path, monkeypatch, writer):
 
 
 @pytest.mark.parametrize("writer,reader", [("fused", "passes"),
-                                           ("passes", "fused")])
+                                           ("passes", "fused"),
+                                           ("segment", "fused"),
+                                           ("fused", "segment")])
 def test_resume_across_scans(tmp_path, monkeypatch, writer, reader):
     """A snapshot written under one scan resumes under the other and
     gives the uninterrupted records and statistics."""
