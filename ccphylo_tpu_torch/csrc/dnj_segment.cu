@@ -47,7 +47,7 @@
 //    pass reads only entries below the rows of the pass before, which
 //    no pass of the join has written, so one copy serves the join).
 //    Without it the walks read Q through L2.  Q needs 4 n bytes of
-//    shared memory: the wrapper drops kStageQ above ~48k rows.
+//    shared memory: the wrapper drops kStageQ above 57,824 rows.
 //    Counting each group's candidates in the first walk, so that the
 //    second could skip to the right group, was slower (PERF.md).
 //  - the loads of a phase are all in flight before any is used: the pass's

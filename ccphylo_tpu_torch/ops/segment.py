@@ -54,8 +54,9 @@ def smem_bytes(flags: int, n: int) -> int:
 
 def segment_flags(n: int, flags: int | None = None) -> int:
     """The flags a launch at n rows takes: FLAGS by default, without
-    STAGE_Q where Q does not fit in shared memory (n above ~48k rows:
-    the scan then reads Q through L2)."""
+    STAGE_Q where Q does not fit in shared memory: n above
+    (MAX_DYNAMIC_SMEM - SMEM_HEAD) / 4 = 57,824 rows (the largest padded
+    size that keeps it is 57,344); the scan then reads Q through L2."""
     flags = FLAGS if flags is None else int(flags)
     if smem_bytes(flags, n) > MAX_DYNAMIC_SMEM:
         flags &= ~STAGE_Q

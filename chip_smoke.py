@@ -57,6 +57,21 @@ exits non-zero, no exception is caught:
    times there are the `kernels` line's), dnj_segment at every
    CHECK_SEG joins of them (its first launch the `kernels` line's),
    `SegmentProbe` and `segment_breakdown` as in phase 3;
+4b. parity (after phase 4): the packed engine's whole tree on the
+   synthetic hash matrix of benchmarks/synth.py (mod 97, lo 3), made on
+   the card (`hash_words`; 4096 cells checked against a numpy copy of
+   the hash), at n = 20,000 (20,480 rows, Q in shared memory) and
+   n = 100,000 (100,352 rows, 10.07 GB; Q read through L2), through
+   dnj_joins_packed, limbs_host and _records_to_newick on names with
+   the Phylip loader's capacities: each Newick's sha256 equals the C
+   reference's (benchmarks/evidence/README.md), at 100,000 the bytes
+   equal the gunzipped parity100k.c.nwck.gz and the records digest
+   the evidence's; the run's flags and launches asserted (one
+   dnj_segment a segment, nothing else).  At 100,000 first dnj_segment
+   without Q against dnj_segment_plain every CHECK_SEG joins of the
+   first CHECKED_JOINS, `SegmentProbe` and `segment_breakdown`; the
+   seconds of each step, joins/s, passes per join and the peak memory
+   on the card printed with the card's name and power limit;
 5. engines: the float64 device engines of all seven tree methods
    (tree/torch_engine.py, tree/hclust_engine.py) on phase 3's integer
    SNP matrix as a double-precision matrix, through
@@ -144,8 +159,8 @@ exits non-zero, no exception is caught:
    each stage's seconds printed.
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
-named phases (kernels, main_path, scale, streamed, engines, sharded,
-matdist, cli, dryrun, profile) and
+named phases (kernels, main_path, scale, parity, streamed, engines,
+sharded, matdist, cli, dryrun, profile) and
 prints their results without the contract lines: for work on one
 phase.  `profile` runs only when named: 64 joins of each device engine
 at n = 2048 on the host's clock and the next 64 in a torch.profiler
@@ -161,6 +176,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gzip
+import hashlib
 import io
 import json
 import multiprocessing
@@ -226,6 +243,21 @@ Z_DEPTH = 65535      # z's gate: every total a uint16 count allows
 # chi-square (1 df) critical values: z's gate flips where q crosses them
 Z_CRITICAL = {0.05: 3.841458820694124, 0.01: 6.634896601021214,
               0.001: 10.827566170662733}
+# the parity phase: the synthetic hash matrix of benchmarks/synth.py
+# (mod 97, lo 3) at the sizes of the C reference's checked-in results
+# (benchmarks/evidence/README.md); never cut
+N_PARITY_Q, N_PARITY = 20_000, 100_000  # Q in shared memory; through L2
+PARITY_SHA256 = {
+    N_PARITY_Q: "48baa6a297644bed0108931d3b97a863c6020b779990341eaa2ea51a9a64f0bc",
+    N_PARITY: "d0ee63b7659215ccdaf6b4fd5b3e7f30656ca021871d9d5e48f3adc1afc110d5"}
+PARITY_NWK = "benchmarks/evidence/parity100k.c.nwck.gz"  # the C Newick
+PARITY_BYTES = 3_502_515
+PARITY_DIGEST = "4cd63bdaec536c37"  # the evidence's records digest
+EVIDENCE_PASSES = 6.52  # scan passes a join of the evidence's (TPU) run
+HASH_K = (2654435761, 40503, 2246822519)  # the hash's multipliers
+M32 = 0xFFFFFFFF
+HASH_ROWS = 512      # rows of the hash matrix made at once
+SPOT_CELLS = 4096    # cells of it checked against the numpy hash
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_META = {
     "snp_expand_shared": ("ccphylo_tpu_torch/csrc/snp_expand.cu",
@@ -267,6 +299,15 @@ KERNEL_PATH = {
 
 def log(*a):
     print("#", *a, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi unavailable"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1167,6 +1208,251 @@ def phase_scale(dev, g, res):
                                       ours.cpu().numpy()[:k], err_msg=name)
     log(f"first {k} joins equal the plain-scan run")
     return D8
+
+
+# ---------------------------------------------------------------------
+# phase parity: the packed engine at n = 20,000 and 100,000 on the
+# synthetic hash matrix, byte-equal to the C reference's Newick
+
+
+def _mul32(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(x * k) mod 2**32 for int64 x in [0, 2**32) and k < 2**32, in two
+    16-bit halves of k: no intermediate reaches 2**49."""
+    return (x * (k & 0xFFFF) + (((x * (k >> 16)) & 0xFFFF) << 16)) & M32
+
+
+def hash_cells(i: torch.Tensor, j: torch.Tensor, mod: int = 97,
+               lo: int = 3) -> torch.Tensor:
+    """Cell (i, j) of the synthetic matrix for int64 index tensors
+    (broadcast), as uint8: lo + h % mod of a uint32 hash of (max, min),
+    0 on the diagonal.  The uint32 wraparound is done in int64, masked
+    after every step; equal to `hash_cells_np`."""
+    i, j = i & M32, j & M32
+    h = (_mul32(torch.maximum(i, j), HASH_K[0])
+         + _mul32(torch.minimum(i, j), HASH_K[1])) & M32
+    h ^= h >> 15
+    h = _mul32(h, HASH_K[2])
+    h ^= h >> 13
+    return torch.where(i == j, 0, h % mod + lo).to(torch.uint8)
+
+
+def hash_cells_np(i, j, mod: int = 97, lo: int = 3) -> np.ndarray:
+    """`hash_cells` in numpy uint32 arithmetic (wraps by itself): the
+    spot check's oracle."""
+    i = np.asarray(i).astype(np.uint32)
+    j = np.asarray(j).astype(np.uint32)
+    k1, k2, k3 = (np.uint32(k) for k in HASH_K)
+    with np.errstate(over="ignore"):
+        h = np.maximum(i, j) * k1 + np.minimum(i, j) * k2
+        h ^= h >> np.uint32(15)
+        h *= k3
+        h ^= h >> np.uint32(13)
+    v = h % np.uint32(mod) + np.uint32(lo)
+    return np.where(i == j, 0, v).astype(np.uint8)
+
+
+def hash_words(n: int, dev, mod: int = 97, lo: int = 3) -> torch.Tensor:
+    """The packed engine's (npad, npad/4) int32 words of the n-taxon
+    hash matrix (npad = pe.pad_packed(n)), made on `dev` in groups of
+    HASH_ROWS rows of its uint8 view; 0 outside [0, n)."""
+    npad = pe.pad_packed(n)
+    words = torch.zeros((npad, npad // 4), dtype=torch.int32, device=dev)
+    D8 = words.view(torch.uint8)
+    cols = torch.arange(n, device=dev)[None, :]
+    for r0 in range(0, n, HASH_ROWS):
+        rows = torch.arange(r0, min(r0 + HASH_ROWS, n), device=dev)
+        D8[r0:r0 + rows.numel(), :n] = hash_cells(rows[:, None], cols, mod,
+                                                  lo)
+    return words
+
+
+def spot_check(words: torch.Tensor, n: int, cells: int = SPOT_CELLS) -> int:
+    """`cells` cells of the hash matrix on the card against
+    `hash_cells_np`: random ones, the last rows and columns, the
+    padding.  Returns the number of cells that differ."""
+    npad = words.shape[0]
+    rng = np.random.default_rng(SEED)
+    ri, rj = rng.integers(0, npad, (2, cells))
+    tail = np.arange(64)
+    ri[:64], rj[64:128] = n - 1 - tail, n - 1 - tail
+    ri[128:192], rj[128:192] = n - 1, n - 1 - tail
+    ri[192:224], rj[192:224] = npad - 1 - tail[:32], npad - 1
+    rj[224:256] = npad - 1 - tail[:32]
+    got = words.view(torch.uint8)[torch.from_numpy(ri).to(words.device),
+                                  torch.from_numpy(rj).to(words.device)]
+    want = np.where((ri < n) & (rj < n), hash_cells_np(ri, rj), 0)
+    return int((got.cpu().numpy() != want).sum())
+
+
+def parity_names(n: int) -> list:
+    """Taxon names T0000000 ... with the capacities the reference's
+    Phylip loader gives them (32 names of capacity 4, then 32, each
+    grown for its 8 characters and separator, phy.c:370-429): formNode
+    orders children by capacity (nwck.c:45-50)."""
+    names = []
+    for i in range(n):
+        nm = Name(b"", 4 if i < 32 else 32)
+        nm.grow_for(9)
+        nm.data = b"T%07d" % i
+        names.append(nm)
+    return names
+
+
+def parity_newick(out, n: int, times: dict | None = None) -> bytes:
+    """The Newick file of the packed engine's records `out`
+    (dnj_joins_packed's tuple) at ByteScale 1, as `tree -m dnj -b`
+    writes it: limbs_host, then _records_to_newick on `parity_names`,
+    then ";\\n".  `times`, if given, gets the seconds of "limbs" (the
+    records' copy to the host included), "names" and "newick"."""
+    times = {} if times is None else times
+    t = time.perf_counter()
+    I, J, DIJ2, SDI2, SDJ2, d_last2 = out[:6]
+    LI, LJ = pe.limbs_host(I, J, DIJ2, SDI2, SDJ2, n, 1.0)
+    d_last = int(d_last2) / 2.0
+    times["limbs"], t = time.perf_counter() - t, time.perf_counter()
+    names = parity_names(n)
+    times["names"], t = time.perf_counter() - t, time.perf_counter()
+    nwk = te._records_to_newick(I, J, LI, LJ, d_last, n, names, 0, 9)
+    times["newick"] = time.perf_counter() - t
+    return nwk + b";\n"
+
+
+def records_digest(out, n: int) -> str:
+    """sha256[:16] over I, J, DIJ2, SDI2, SDJ2 [:n-2] as int32, in that
+    order: the evidence's records digest."""
+    h = hashlib.sha256()
+    for x in out[:5]:
+        a = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        h.update(np.ascontiguousarray(a[:n - 2], np.int32).tobytes())
+    return h.hexdigest()[:16]
+
+
+def first_difference(a: bytes, b: bytes) -> int:
+    """The first offset where two byte strings differ (the shorter's
+    length if one is a prefix of the other)."""
+    k = min(len(a), len(b))
+    x = np.frombuffer(a[:k], np.uint8) != np.frombuffer(b[:k], np.uint8)
+    return int(x.argmax()) if x.any() else k
+
+
+def parity_run(words: torch.Tensor, n: int, card: str) -> tuple:
+    """The whole tree of the packed engine on the hash matrix `words`
+    (updated in place) through its entry points: dnj_joins_packed at the
+    default scan and body (one dnj_segment launch a segment), then
+    `parity_newick`.  Asserts the run's segment flags (STAGE_Q exactly
+    where Q fits in shared memory) and its launches (dnj_segment once a
+    segment, no other kernel of the join loop).  Returns (Newick,
+    records digest, measures)."""
+    npad = words.shape[0]
+    preps = []
+
+    def prepare(*a, **kw):
+        preps.append(segment.dnj_segment_prepare(*a, **kw))
+        return preps[-1]
+
+    pe._PREPARE[segment.dnj_segment] = prepare
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out, t_engine = synced(lambda: pe.dnj_joins_packed(words, n,
+                                                           kbatch=KBATCH))
+    finally:
+        pe._PREPARE[segment.dnj_segment] = segment.dnj_segment_prepare
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in build.launches.items() if v}
+    flags = preps[0][2]
+    stage = bool(flags & segment.STAGE_Q)
+    assert len(preps) == 1 and stage == (segment.smem_bytes(
+        segment.STAGE_Q, npad) <= segment.MAX_DYNAMIC_SMEM), (npad, flags)
+    assert launches == {"dnj_segment": -(-(n - 2) // segmenting.SEG)}, \
+        launches
+    passes = int(pe.dnj_joins_packed.last_stats[0])
+    times = {}
+    nwk = parity_newick(out, n, times)
+    digest = records_digest(out, n)
+    m = {"n": n, "npad": npad, "flags": flags, "stage_q": stage,
+         "launches": launches, "engine_s": t_engine,
+         "joins_per_s": (n - 2) / t_engine, "passes": passes,
+         "passes_per_join": passes / (n - 2), "peak_bytes": peak,
+         "newick_bytes": len(nwk), "sha256": hashlib.sha256(nwk).hexdigest(),
+         "records_digest": digest, **{k + "_s": v for k, v in times.items()}}
+    log(f"parity n={n} ({card}): engine {t_engine:.2f} s, "
+        f"{m['joins_per_s']:,.1f} joins/s, {passes} passes "
+        f"({m['passes_per_join']:.3f} per join; the evidence's TPU run "
+        f"{EVIDENCE_PASSES} at n = 100,000), flags {flags} (STAGE_Q "
+        f"{stage}), launches {launches}; limbs {times['limbs']:.2f} s, "
+        f"names {times['names']:.2f} s, Newick {times['newick']:.2f} s "
+        f"({len(nwk):,} bytes); peak {peak / 2 ** 30:.2f} GiB on the card; "
+        f"records digest {digest}")
+    return nwk, digest, m
+
+
+def phase_parity(dev, res):
+    """The packed engine's whole tree at n = N_PARITY_Q (Q in shared
+    memory) and N_PARITY (Q read through L2) on the synthetic hash
+    matrix made on the card, each Newick held to the C reference's
+    (benchmarks/evidence: the bytes at N_PARITY, the sha256 at both) and
+    the records to the evidence's digest; at N_PARITY first
+    dnj_segment held to dnj_segment_plain at every CHECK_SEG joins of
+    the first CHECKED_JOINS (every state array), `SegmentProbe` and
+    `segment_breakdown` on the first segment.  Prints seconds of every
+    step, joins/s, passes per join and the peak memory on the card,
+    each with the card's name and power limit."""
+    out = res["parity"] = {}
+    card = card_line()
+    evidence = gzip.decompress((Path(REPO) / PARITY_NWK).read_bytes())
+    assert len(evidence) == PARITY_BYTES and hashlib.sha256(
+        evidence).hexdigest() == PARITY_SHA256[N_PARITY], "evidence file"
+    failed = []
+    for n in (N_PARITY_Q, N_PARITY):
+        o = out[n] = {"held_before_bytes": torch.cuda.memory_allocated()}
+        words, o["generate_s"] = synced(lambda: hash_words(n, dev))
+        bad = spot_check(words, n)
+        assert bad == 0, f"{bad} of {SPOT_CELLS} cells differ at n={n}"
+        torch.cuda.reset_peak_memory_stats()
+        _, o["init_s"] = synced(lambda: pe._packed_init(words, n))
+        o["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        o["matrix_bytes"] = words.numel() * 4
+        log(f"parity n={n} ({card}): hash matrix {words.shape[0]} rows "
+            f"({o['matrix_bytes'] / 1e9:.2f} GB) made in "
+            f"{o['generate_s']:.2f} s, {SPOT_CELLS} cells equal the numpy "
+            f"hash; init alone {o['init_s']:.2f} s, peak "
+            f"{o['init_peak_bytes'] / 2 ** 30:.2f} GiB (of which "
+            f"{o['held_before_bytes'] / 2 ** 30:.2f} GiB held by earlier "
+            "phases)")
+        if n == N_PARITY:  # the kernel without Q, on copies of the matrix
+            D8 = words.view(torch.uint8)
+            h = held_to_plain(D8, n, CHECKED_JOINS, ["no Q"], o,
+                              "segment_check")
+            err = res.setdefault("max_abs_err", {})
+            err["dnj_segment"] = max(err.get("dnj_segment", 0),
+                                     h["max_abs_err"])
+            probe_segment(D8, n, o, "segment_probe")
+            segment_breakdown(D8, n, segmenting.SEG, ["no Q"], o,
+                              "segment_breakdown")
+            del D8
+        nwk, digest, m = parity_run(words, n, card)
+        del words
+        o.update(m)
+        # every size is run before a difference raises
+        if m["sha256"] != PARITY_SHA256[n]:
+            failed.append(f"n={n}: Newick sha256 {m['sha256']}, the C "
+                          f"reference's {PARITY_SHA256[n]}")
+        if n == N_PARITY and nwk != evidence:
+            failed.append(f"n={n}: Newick differs from the C reference's "
+                          f"at byte {first_difference(nwk, evidence)}")
+        if n == N_PARITY and digest != PARITY_DIGEST:
+            failed.append(f"n={n}: records digest {digest}, the "
+                          f"evidence's {PARITY_DIGEST}")
+        log(f"parity n={n}: Newick {len(nwk):,} bytes, sha256 "
+            f"{m['sha256'][:16]}..., records digest {digest}")
+    del evidence
+    torch.cuda.empty_cache()
+    assert not failed, failed
+    log(f"parity ({card}): each Newick equals the C reference's (sha256; "
+        f"at n={N_PARITY} byte for byte with {PARITY_NWK}, records digest "
+        f"{PARITY_DIGEST}); n={N_PARITY} dnj_segment launches "
+        f"{out[N_PARITY]['launches']['dnj_segment']}")
 
 
 
@@ -2340,8 +2626,8 @@ def phase_dryrun(dev, res):
            if "world2_refused" in out else ""))
 
 
-PHASES = ("kernels", "main_path", "scale", "streamed", "engines", "sharded",
-          "matdist", "cli", "dryrun", "profile")
+PHASES = ("kernels", "main_path", "scale", "parity", "streamed", "engines",
+          "sharded", "matdist", "cli", "dryrun", "profile")
 
 
 def main() -> int:
@@ -2370,6 +2656,7 @@ def main() -> int:
             lambda: phase_kernels(dev, g, res),
             lambda: shared.update(flat=phase_main_path(dev, g, res)),
             lambda: shared.update(D8=phase_scale(dev, g, res)),
+            lambda: phase_parity(dev, res),
             lambda: phase_streamed(dev, g, res, shared.pop("D8", None)),
             lambda: phase_engines(dev, g, res, shared.get("flat")),
             lambda: phase_sharded(dev, res, shared.get("flat")),
@@ -2384,11 +2671,7 @@ def main() -> int:
             log(f"phase {name}: {res['phase_s'][name]:.1f} s")
     res["total_s"] = time.perf_counter() - t_start
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else "nvidia-smi unavailable"
+    card = card_line()
     print(json.dumps({"results": res}))
     print(card)
     if only:

@@ -461,10 +461,23 @@ def test_dnj_segment_wrapper_checks_the_joins(t0, t1, m):
 
 def test_flags_drop_the_copy_of_q_where_it_does_not_fit():
     """Q in shared memory takes 4 bytes a row: the copy is dropped above
-    ~48k rows, the other flags kept."""
+    57,824 rows, the other flags kept."""
     assert segment.segment_flags(32768) == segment.FLAGS
     big = segment.segment_flags(65536)
     assert big == segment.FLAGS & ~segment.STAGE_Q
     assert segment.smem_bytes(segment.FLAGS, 32768) \
         <= segment.MAX_DYNAMIC_SMEM < segment.smem_bytes(segment.FLAGS,
                                                          65536)
+
+
+@pytest.mark.parametrize("n,stage", [(20480, True), (57344, True),
+                                     (57824, True), (57825, False),
+                                     (57856, False), (100352, False)])
+def test_stage_q_limit(n, stage):
+    """STAGE_Q holds up to (227 * 1024 - 1024 - 128) / 4 = 57,824 rows:
+    the parity run's 20,480 padded rows keep it, its 100,352 drop it
+    (the largest padded size with it is 57,344), PROFILE either way."""
+    for extra in (0, segment.PROFILE):
+        flags = segment.segment_flags(n, segment.STAGE_Q | extra)
+        assert bool(flags & segment.STAGE_Q) == stage
+        assert flags & segment.PROFILE == extra
