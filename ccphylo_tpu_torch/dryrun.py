@@ -132,9 +132,11 @@ def run_stages() -> dict:
     Dfull = D.astype(np.float64)
     np.fill_diagonal(Dfull, 0.0)
 
-    def s2():  # device DNJ, the sequential scan (the JAX default)
+    def s2():  # device DNJ, float32: one dnj_segment_float launch on the
+        # card (its batch scan takes the JAX default's sequential
+        # scan's trajectory, join for join)
         rec = torch_engine.dnj_joins(torch.from_numpy(Dsq.copy()).to(dev),
-                                     n, scan="seq")
+                                     n)
         for k, v in zip(("I", "J", "LI", "LJ", "d_last"), rec[:5]):
             out["s2/" + k] = _host(v)
         _require((out["s2/I"][:n - 2] > 0).all(), "DNJ joins recorded")

@@ -64,6 +64,13 @@ ENTRY_POINTS = {
         "dnj_segment": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P, _I, _P],
     },
+    "dnj_segment_float": {
+        # D, n, sD, N, Q, P, seed, I, J, LI, LJ, exact (or null),
+        # first_inexact, stats, t0, t1, m, neg_limbs, G, scratch, flags,
+        # stream
+        "dnj_segment_float": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    },
 }
 # source stem -> {C function that launches nothing: argtypes}; each
 # returns an int of its own meaning (see `query`)
@@ -72,6 +79,9 @@ QUERIES = {
     "dnj_join": {"dnj_join_max_blocks": []},
     # flags, n
     "dnj_segment": {"dnj_segment_max_blocks": [_I, _I]},
+    # flags; G, n, flags
+    "dnj_segment_float": {"dnj_segment_float_max_blocks": [_I],
+                          "dnj_segment_float_scratch_bytes": [_I, _I, _I]},
 }
 
 # launches of each kernel since the last reset_launches(); qrow_mins on

@@ -7,22 +7,22 @@ Cycle-accurate DNJ (reference dnj.c:985-1052):
   counts N, and the reference's asymmetric row caches: Q[i]/P[i] cover
   partners j < i only, like the lower-triangular C engine
   (dnj.c:43-128).  All of it lives on the torch device and is updated in
-  place; the join records (I, J, LI, LJ) are host arrays.
-- the join loop is one Python loop under tree/segmenting.py.  The pair
-  selection replicates minQpair's seeded descending scan with strict-<
-  tightening, either one row at a time (``scan="seq"``, for tests) or in
-  fused (K, m) blocks (``scan="batch"``, what the CLI runs); each pass
-  of a scan ends in one host read, which also brings the picked pair
-  (i, j) to the host, so the rest of the join indexes rows and columns
-  with plain integers over the m active taxa only.  Where the JAX body
-  gates every write by a mask, the port branches on the host; a join
-  that finds no pair still records I = J = 0, LI = LJ = -1.
-- limbs (nj.c:42-109) are computed on the host from five values of one
-  more host read, in the state's precision.
-- masked scatters of the reference (``.at[tgt].add(..., mode="drop")``)
-  send their dropped entries to slot j, which the same update
-  overwrites right after; every other target is distinct, so the
-  scatter is deterministic on CUDA.
+  place, the join records (I, J, LI, LJ) too until the end of the run.
+- the float engine's join loop (`dnj_joins`, scan="batch", what the CLI
+  runs) is one `dnj_segment_float` call per fenced segment of
+  tree/segmenting.py (ops/segment_float.py): on the card one cooperative
+  launch of csrc/dnj_segment_float.cu runs every scan pass and join body
+  of the segment, and the host reads one int a segment, the join at
+  which the segment stopped for the exact range (`InexactSums`); on CPU
+  tensors the same call runs the plain loop of `_one_join`, described
+  under ops/segment_float.py.  The pair selection replicates minQpair's
+  seeded descending scan with strict-< tightening, in fused blocks of
+  KBATCH rows; ``scan="seq"`` keeps the plain one-row-at-a-time scan
+  (`_seq_scan`, for tests).  A join that finds no pair records I = J =
+  0, LI = LJ = -1.
+- the quantized engine (`dnj_joins_q`) still runs the plain loop: one
+  host read per scan pass and one for the limbs, branches on host
+  integers.
 
 No padding: the matrix is (n, n) for n taxa, and a state carried over
 from the JAX engine (interop.state_from_jax) may be larger than its
@@ -35,17 +35,19 @@ of a sum cannot matter, and the records are bit-identical to the JAX
 engine's and, in float64, the Newick bytes to the host exact engine's
 (tree/exact.py).  Each join stores (D_ik + D_kj - D_ij) / 2, which can
 add one fractional bit per generation of a lineage, so the exact range
-ends at some depth.  Outside it, and on non-integer matrices: `cumsum`
-and `sum` on CUDA are parallel, not the C's left-to-right sums, and
-``coef * d - sD[i] - sD`` is never contracted to a fused multiply-add
-here, so sD and Q can differ from the host engine's in the last ulp,
-and on tie-dense data an ulp can flip a pick.  Ties themselves,
-including the guaranteed three-way tie at the final join, resolve
-identically by construction.  With ``exact_sums`` an engine tracks the
-exact range as it runs (`sums_exact`: one flag on the device, read with
-each join's limbs) and raises InexactSums at the first join that could
-read a sum outside it; the default CLI route then hands the tree to the
-host engine.
+ends at some depth.  Outside it, and on non-integer matrices: the
+kernel's block sums and `cumsum` and `sum` on CUDA are parallel, not
+the C's left-to-right sums, and ``coef * d - sD[i] - sD`` is never
+contracted to a fused multiply-add (the kernel rounds each operation
+with the _rn intrinsics), so sD and Q can differ from the host engine's
+in the last ulp, and on tie-dense data an ulp can flip a pick.  Ties
+themselves, including the guaranteed three-way tie at the final join,
+resolve identically by construction.  With ``exact_sums`` an engine
+tracks the exact range as it runs (`sums_exact`: one flag on the
+device, which the kernel keeps in every block and the plain loop reads
+with each join's limbs) and raises InexactSums at the first join that
+could read a sum outside it; the default CLI route then hands the tree
+to the host engine.
 
 The quantized engine keeps D as u16 or u8 cells with the reference's
 ByteScale quantization (bytescale.h:22-23).  u16 cells are held as
@@ -58,6 +60,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import segment_float
 from ..ops.select import topk_mask_indices
 from ..utils.torchconfig import device as default_device
 from .newick_build import (byteshift_fix, form_last_bi_node,
@@ -66,6 +69,7 @@ from .segmenting import run_segmented
 
 KBATCH = 128  # rows revalidated per fused block in scan="batch"
 _CH = 512     # rows per chunk of an init pass: temporaries stay (CH, m)
+_TILE = 1024  # rows and columns of a tile `square_matrix` mirrors
 
 
 def _big(dtype) -> float:
@@ -371,13 +375,15 @@ def _seq_scan(row_q, Q, P, seed, m_t: int, idx, big):
     return tuple(torch.cat([pi, pj]).tolist())
 
 
-def _batch_scan(block_q, Q, P, seed, m_t: int, idx, big):
+def _batch_scan(block_q, Q, P, seed, m_t: int, idx, big, stats=None):
     """Fused candidate-row revalidation: all rows whose cached bound
     beats the running min are recomputed KBATCH at a time as one (K,
     m_t) block (`block_q(rows)` gives their Q values, big where
     invalid); the set shrinks every pass (fresh rows can't re-qualify:
     the running min absorbs their new row minima).  One host read per
-    pass: the candidate count and the pair so far.  Returns (i, j)."""
+    pass: the candidate count and the pair so far.  `stats` ((2,)
+    int64), if given, adds the passes and the rows whose cache a pass
+    rewrote.  Returns (i, j)."""
     minv, pi, pj = _scan_start(Q, P, seed, big)
     while True:
         cm = Q[1:m_t] < minv
@@ -404,6 +410,9 @@ def _batch_scan(block_q, Q, P, seed, m_t: int, idx, big):
         reval = Qr < rm
         Q[r] = torch.where(reval, rmin, Qr)
         P[r] = torch.where(reval, rarg.to(P.dtype), P[r])
+        if stats is not None:
+            stats[0] += 1
+            stats[1] += reval.sum()
         # pair update: strict improvement, largest row wins a tie (the
         # C scan visits rows descending and requires newq < running
         # min, so the largest row locks an equal min first)
@@ -485,8 +494,9 @@ def _move_last(D, sD, N, i: int, m_t: int):
     N[i] = N[last]
 
 
-def _one_join(st, t: int, m: int, neg_limbs: bool, scan: str):
-    """Join t of the DNJ loop on the state `st`, in place."""
+def _one_join(st, t: int, m: int, neg_limbs: bool, scan: str, stats=None):
+    """Join t of the DNJ loop on the state `st`, in place; `stats` as in
+    `_batch_scan`."""
     D, sD, N, Q, P, idx = (st[k] for k in ("D", "sD", "N", "Q", "P", "idx"))
     dtype = D.dtype
     big = _big(dtype)
@@ -505,7 +515,7 @@ def _one_join(st, t: int, m: int, neg_limbs: bool, scan: str):
         i, j = _seq_scan(lambda r: _row_q(D, sD, N, r, big), Q, P,
                          st["seed"], m_t, idx, big)
     else:
-        i, j = _batch_scan(block_q, Q, P, st["seed"], m_t, idx, big)
+        i, j = _batch_scan(block_q, Q, P, st["seed"], m_t, idx, big, stats)
     if i == 0 and j == 0:
         return _no_pair(st, t, last, big)
 
@@ -547,19 +557,41 @@ def _records(n: int, dtype):
 
 def _dnj_segment(st, t0: int, t1: int, m: int, neg_limbs=False,
                  scan="batch"):
-    """Joins [t0, t1) of the DNJ loop, in place on `st`."""
+    """Joins [t0, t1) of the plain DNJ loop, in place on `st` (its
+    records may be host arrays, as `state_from_numpy` gives them)."""
     for t in range(t0, t1):
         _one_join(st, t, m, neg_limbs, scan)
     return st
 
 
+def _run_segment(st, t0: int, t1: int, m: int, neg_limbs=False, prep=None):
+    """Joins [t0, t1) on the state `st` of `_new_state` through
+    `dnj_segment_float` (`prep` from its prepare on the same state), then
+    one host read: raises InexactSums at the join where the segment
+    stopped."""
+    segment_float.dnj_segment_float(
+        *(st.get(k) for k in segment_float.STATE_KEYS), t0, t1, m,
+        neg_limbs, prep=prep)
+    t = int(st["first_inexact"])
+    if t >= 0:
+        raise InexactSums(t)
+    return st
+
+
 def _new_state(D, m: int) -> dict:
-    """The DNJ state of the m active taxa of D before the first join."""
+    """The DNJ state of the m active taxa of D before the first join, its
+    records on D's device."""
     sD, N, Q, P, seed = _dnj_init(D, m)
-    n = D.shape[0]
+    n, dev = D.shape[0], D.device
     return {"D": D, "sD": sD, "N": N, "Q": Q, "P": P, "seed": seed,
-            "idx": torch.arange(n, device=D.device),
-            **_records(n, D.dtype)}
+            "idx": torch.arange(n, device=dev),
+            "I": torch.zeros(n, dtype=torch.int32, device=dev),
+            "J": torch.zeros(n, dtype=torch.int32, device=dev),
+            "LI": torch.zeros(n, dtype=D.dtype, device=dev),
+            "LJ": torch.zeros(n, dtype=D.dtype, device=dev),
+            "first_inexact": torch.full((1,), -1, dtype=torch.int32,
+                                        device=dev),
+            "stats": torch.zeros(2, dtype=torch.int64, device=dev)}
 
 
 def dnj_joins(D, m: int, neg_limbs=False, scan="batch", exact_sums=False):
@@ -570,13 +602,16 @@ def dnj_joins(D, m: int, neg_limbs=False, scan="batch", exact_sums=False):
     join records and the last pair's distance; records with I == J == 0
     mean "no joinable pair left" (missing-data early stop, dnj.c:1009).
 
-    scan="seq" replicates minQpair's sequential descending row
-    revalidation cycle for cycle.  scan="batch" recomputes candidate
-    rows (cached Q < running min) in fused (K, m) blocks and is also
-    trajectory-exact, ties included: a shifted prefix-min recovers the
-    C's running min at every row visit, so exactly the rows minQpair
-    would recompute get fresh caches (see `_batch_scan`), and batches
-    are taken in the C's descending row order.
+    scan="batch": one `dnj_segment_float` call per segment (on the card
+    the kernel, one launch and one host read a segment; on CPU tensors
+    the plain loop); its scan recomputes candidate rows (cached Q <
+    running min) in fused blocks and is trajectory-exact, ties included:
+    a shifted prefix-min recovers the C's running min at every row
+    visit, so exactly the rows minQpair would recompute get fresh caches
+    (see `_batch_scan`), and batches are taken in the C's descending row
+    order.  scan="seq" runs the plain loop with minQpair's sequential
+    descending row revalidation, cycle for cycle.  The records reach the
+    host once, at the end.
 
     exact_sums: track the exact range (`track_sums`) and raise
     InexactSums at the first join whose picks or limbs could read a row
@@ -588,10 +623,19 @@ def dnj_joins(D, m: int, neg_limbs=False, scan="batch", exact_sums=False):
     st = _new_state(D, m)
     if exact_sums:
         track_sums(st, m)
-    run_segmented(
-        lambda st, t0, t1: _dnj_segment(st, t0, t1, m, neg_limbs, scan),
-        st, max(m - 2, 0))
-    return st["I"], st["J"], st["LI"], st["LJ"], float(D[1, 0]), D
+    if scan == "seq":
+        def seg(st, t0, t1):
+            return _dnj_segment(st, t0, t1, m, neg_limbs, "seq")
+    else:
+        prep = segment_float.dnj_segment_float_prepare(
+            *(st.get(k) for k in segment_float.STATE_KEYS), m) \
+            if D.is_cuda and m > 2 else None
+
+        def seg(st, t0, t1):
+            return _run_segment(st, t0, t1, m, neg_limbs, prep)
+    run_segmented(seg, st, max(m - 2, 0))
+    return (_host(st["I"]), _host(st["J"]), _host(st["LI"]),
+            _host(st["LJ"]), float(D[1, 0]), D)
 
 
 # ---------------------------------------------------------------------
@@ -846,11 +890,23 @@ def _records_to_newick(I, J, LI, LJ, d_last, n, names, flag, precision):
 
 def square_matrix(flat64: np.ndarray, n: int, fill: float = -1.0):
     """The (n, n) float64 host matrix of a loaded ltd matrix, diagonal
-    0."""
+    0: row i's cells 0..i-1 copied from the flat triangle, then mirrored
+    into the upper triangle a (_TILE, _TILE) tile at a time.  Contiguous
+    copies only: scattering through the n(n-1)/2 index pairs of
+    np.tril_indices takes a minute and more at n = 32768."""
     D = np.full((n, n), fill, np.float64)
-    iu = np.tril_indices(n, -1)
-    D[(iu[0], iu[1])] = flat64
-    D[(iu[1], iu[0])] = flat64
+    flat = np.asarray(flat64, np.float64)
+    at = 0
+    for i in range(1, n):
+        D[i, :i] = flat[at:at + i]
+        at += i
+    for r0 in range(0, n, _TILE):
+        r1 = min(r0 + _TILE, n)
+        for c0 in range(0, r0, _TILE):
+            D[c0:c0 + _TILE, r0:r1] = D[r0:r1, c0:c0 + _TILE].T
+        tile = D[r0:r1, r0:r1]
+        up = np.triu_indices(r1 - r0, 1)
+        tile[up] = tile.T[up]
     np.fill_diagonal(D, 0.0)
     return D
 

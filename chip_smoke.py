@@ -56,7 +56,20 @@ exits non-zero, no exception is caught:
    against their plain versions on the first CHECKED_JOINS joins (their
    times there are the `kernels` line's), dnj_segment at every
    CHECK_SEG joins of them (its first launch the `kernels` line's),
-   `SegmentProbe` and `segment_breakdown` as in phase 3;
+   `SegmentProbe` and `segment_breakdown` as in phase 3.  Then the
+   float engine's segment kernel `dnj_segment_float` on the float64
+   copy of this matrix (8.6 GB): held to `dnj_segment_float_plain` at
+   every boundary of CHECK_SEG joins of the first CHECKED_JOINS, every
+   state array equal (`held_float`; its first launch the `kernels`
+   line's, timed by CUDA events, with the plain loop and the byte
+   bound); the float32 instance the same way on the float32 copy, the
+   exact range tracked (bit-equal until both stop at the same join),
+   then untracked beside the plain loop (`float_agreement`: the first
+   join whose pick differs, printed); and the whole tree in float64
+   (`float_tree_at_scale`: tracked on the card, the join where it
+   leaves the exact range; then untracked through build_tree_float:
+   joins/s, launches, the seconds of the host's part, the engine's init
+   and its joins, the peak memory, the tree's shape);
 4b. parity (after phase 4): the packed engine's whole tree on the
    synthetic hash matrix of benchmarks/synth.py (mod 97, lo 3), made on
    the card (`hash_words`; 4096 cells checked against a numpy copy of
@@ -77,7 +90,12 @@ exits non-zero, no exception is caught:
    SNP matrix as a double-precision matrix, through
    tree_cmd._dispatch_build with no variable set: each Newick
    byte-equal to the host exact engine's, the engine that ran
-   asserted, joins/s printed.  Then dnj on u16 cells (-s) and on u8
+   asserted, joins/s printed; dnj on float64 and float32 state runs
+   one dnj_segment_float launch a segment.  dnj through the default
+   route again with the kernel and with the plain loop in turns
+   (`float_turns`: joins/s, launches and waits for the card per join,
+   and 64 joins of each loop under torch.profiler; the first run's
+   launches are the `kernels` line's).  Then dnj on u16 cells (-s) and on u8
    cells (`device64` -b), both byte-equal to the host engine; dnj,
    upgma, cf and hnj on a matrix of random integers in [0, 25), far
    from additive and dense in ties, byte-equal too (the default route
@@ -85,13 +103,19 @@ exits non-zero, no exception is caught:
    handed to the host engine with a note, and is then timed under
    `device64`, its bytes printed, not asserted); the same with 12%
    of the cells missing (the default route goes to the host with its
-   note; `device64` runs on the card, equality printed); dnj on
+   note; `device64` runs on the card, equality printed; the kernel's
+   instance with missing cells held to the plain loop over the whole
+   run, picks equal and limbs within 1e-12 of max(|x|, 1)); dnj on
    float32 state (`device`; shape only, agreement with the float64
-   run printed); how many of float64's 53 bits the cells and row sums
+   run printed; the kernel's float32 instance held to the plain loop
+   with the exact range tracked, bit-equal until both stop); how many
+   of float64's 53 bits the cells and row sums
    of the SNP and the random run used (`exact_range`: every sum must
    be exact); on a caterpillar-like matrix of N_CATERPILLAR taxa, the
    bits dnj and upgma reach and the default route (dnj leaves the exact
-   range and goes to the host with its note); a non-integer copy of the
+   range and goes to the host with its note, before the join at which
+   the plain loop with the exact range tracked stops); a non-integer
+   copy of the
    SNP matrix (the default route goes to the host with its note,
    `device64` -m upgma runs on the card); and dnj in float64 at
    n = N_DEPTH from phase 4's outbreak
@@ -155,15 +179,19 @@ exits non-zero, no exception is caught:
    dryrun_multichip(1) on the card (NCCL), the same on CPU tensors
    (gloo) and `python -m ccphylo_tpu_torch.dryrun`, side by side:
    every stage's records equal, the rank's launches of
-   snp_expand_shared, dnj_segment and qrow_mins through slots above 0,
-   each stage's seconds printed.
+   snp_expand_shared, dnj_segment, qrow_mins through slots and
+   dnj_segment_float above 0, each stage's seconds printed.
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
 named phases (kernels, main_path, scale, parity, streamed, engines,
 sharded, matdist, cli, dryrun, profile) and
 prints their results without the contract lines: for work on one
-phase.  `profile` runs only when named: 64 joins of each device engine
-at n = 2048 on the host's clock and the next 64 in a torch.profiler
+phase.  `profile` runs only when named, and on its own: after the
+`engines` phase in one process its torch.profiler windows see no
+device activity on the card (the engines phase's own window, taken
+alone before it, does not cause this).  It times 64 joins of each
+device engine (dnj both with its kernel and with its plain loop) at
+n = 2048 on the host's clock and the next 64 in a torch.profiler
 window, for kernel launches, host reads, device time and the device's
 idle share per join.
 
@@ -186,6 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
@@ -196,6 +225,7 @@ from ccphylo_tpu_torch import dryrun
 from ccphylo_tpu_torch.cli import dist_cmd, tree_cmd
 from ccphylo_tpu_torch.io.qseqs import Name
 from ccphylo_tpu_torch.ops import build, join, matdist_torch, scan, segment, \
+    segment_float, \
     snp, snp_torch
 from ccphylo_tpu_torch.ops.veccmp import cmp_mats, get_veccmp, p_chisqr
 from ccphylo_tpu_torch.parallel import multihost
@@ -277,6 +307,9 @@ KERNEL_META = {
     # qrow_mins reading its rows through the slot map of a row cache
     "qrow_mins_slots": ("ccphylo_tpu_torch/csrc/qrow_mins.cu",
                         "ccphylo_tpu/ops/scan_pallas.py:49"),
+    # the float engine's device loop of joins _dnj_segment (no Pallas)
+    "dnj_segment_float": ("ccphylo_tpu_torch/csrc/dnj_segment_float.cu",
+                          "ccphylo_tpu/tree/jax_engine.py:453"),
 }
 # the path whose run counts a kernel's launches in the `kernels` line,
 # where it is not the main path (dist, then tree -m dnj -b through
@@ -294,6 +327,10 @@ KERNEL_PATH = {
     "qrow_mins_slots": (("streamed_launches",),
                         "the row-cache engine at n = 32768 (phase "
                         "streamed)"),
+    "dnj_segment_float": (("float_path_launches",),
+                          "tree -m dnj on float64 at n = 2048 through "
+                          "tree_cmd._dispatch_build, the default route "
+                          "(phase engines)"),
 }
 
 
@@ -784,6 +821,290 @@ def engine_turns(words8, n, res, key):
 
 
 # ---------------------------------------------------------------------
+# the float engine's segment kernel (dnj_segment_float)
+
+
+def float_state(D, n, exact=False):
+    """The float engine's state after its init on the matrix D (updated
+    in place), its exact range tracked if asked."""
+    st = te._new_state(D, n)
+    st["exact"] = None
+    if exact:
+        te.track_sums(st, n)
+    return st
+
+
+def float_args(st):
+    return [st.get(k) for k in segment_float.STATE_KEYS]
+
+
+def float_err(a: dict, b: dict, rel=False,
+              keys=segment_float.STATE_KEYS) -> float:
+    """The largest difference of two float-engine states over the arrays
+    `keys`: |x - y|, 0 where the two are equal (the matrix compared in
+    row blocks), or with `rel` |x - y| / max(|y|, 1)."""
+    err = 0.0
+    for k in keys:
+        x, y = a[k], b[k]
+        if x is None or torch.equal(x, y):
+            continue
+        x2, y2 = x.reshape(x.shape[0], -1), y.reshape(y.shape[0], -1)
+        for r in range(0, x2.shape[0], 1024):
+            xs, ys = x2[r:r + 1024].double(), y2[r:r + 1024].double()
+            d = torch.where(xs == ys, 0.0, (xs - ys).abs())
+            if rel:
+                d = d / ys.abs().clamp_min(1.0)
+            err = max(err, float(d.max()))
+    return err
+
+
+def float_join_bytes(m_t, passes, tb, pop, q_changed) -> int:
+    """Bytes join t of the float engine must move, `tb` bytes a float:
+    per scan pass (`passes`, the rows of each) the c < r prefix of each
+    row's cells, sD and N under the longest prefix, Q of the m_t rows
+    and three results a row; the body: rows i, j (and last, with
+    popArrange) read, row and column j (and i) written, sD and N read and
+    written, the changed Q and P entries, the records."""
+    nbytes = 0
+    for rows in passes:
+        r = rows.long()
+        nbytes += int(r.sum()) * tb + int(r.max()) * (tb + 4) \
+            + m_t * tb + 12 * r.numel()
+    return nbytes + (4 + 3 * pop) * m_t * tb + 2 * m_t * (tb + 4) \
+        + q_changed * (tb + 4) + 8 + 2 * tb
+
+
+def plain_float_joins(st, t0, t1, n) -> int:
+    """dnj_segment_float_plain on `st` over joins [t0, t1), join by join,
+    the rows of each scan pass noted; returns their bytes
+    (`float_join_bytes`).  Stops at a join where the exact range ends."""
+    real, scanned, nbytes = te._batch_scan, [], 0
+    tb = st["D"].element_size()
+
+    def recording(block_q, *a, **k):
+        def noted(rows):
+            scanned.append(rows)
+            return block_q(rows)
+        return real(noted, *a, **k)
+
+    te._batch_scan = recording
+    try:
+        for t in range(t0, t1):
+            del scanned[:]
+            Q0 = st["Q"].clone()
+            segment_float.dnj_segment_float_plain(*float_args(st), t, t + 1,
+                                                  n)
+            if int(st["first_inexact"]) >= 0:
+                break
+            m_t = n - t
+            nbytes += float_join_bytes(
+                m_t, scanned, tb, int(st["I"][t]) != m_t - 1,
+                int((st["Q"] != Q0).sum()))
+    finally:
+        te._batch_scan = real
+    return nbytes
+
+
+def held_float(D, n, joins, res, key, exact=False, rtol=0.0):
+    """dnj_segment_float held to dnj_segment_float_plain on the card over
+    the first `joins` joins of a run on the matrix D (the plain loop's;
+    the kernel runs on a copy): one launch per CHECK_SEG joins, compared
+    at every boundary: every state array equal (`float_err` 0), or,
+    with rtol (sums outside the exact range, in another order), the
+    picks I, J and the counts N equal and the limbs within rtol of
+    max(|x|, 1), the largest relative difference of D, sD and Q
+    printed.  With
+    `exact`, the exact range is tracked and a join where it ends stops
+    both loops, at the same join, and the check.  Each launch is timed
+    on the card (CUDA events, queued behind a spin), the plain loop on
+    the first segment on a copy; the bound counts each join's bytes
+    (`float_join_bytes`)."""
+    st = float_state(D.clone(), n, exact)
+    prep = segment_float.dnj_segment_float_prepare(*float_args(st), n)
+    ref = float_state(D, n, exact)
+    seg_ms, seg_bytes, err, stop, plain_ms = [], [], 0.0, -1, None
+    state_diff = 0.0
+    for t0 in range(0, joins, CHECK_SEG):
+        t1 = min(t0 + CHECK_SEG, joins)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if plain_ms is None:
+            tmp = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                   for k, v in ref.items()}
+            a.record()
+            segment_float.dnj_segment_float_plain(*float_args(tmp), t0, t1,
+                                                  n)
+            b.record()
+            torch.cuda.synchronize()
+            plain_ms = a.elapsed_time(b)
+            del tmp
+        seg_bytes.append(plain_float_joins(ref, t0, t1, n))
+        torch.cuda._sleep(SEG_SPIN)
+        a.record()
+        segment_float.dnj_segment_float(*float_args(st), t0, t1, n,
+                                        prep=prep)
+        b.record()
+        torch.cuda.synchronize()
+        seg_ms.append(a.elapsed_time(b))
+        if rtol:
+            for k in ("I", "J", "N"):
+                assert torch.equal(st[k], ref[k]), f"{k} after [{t0}, {t1})"
+            e = float_err(st, ref, True, ("LI", "LJ"))
+            state_diff = max(state_diff,
+                             float_err(st, ref, True, ("D", "sD", "Q")))
+        else:
+            e = float_err(st, ref)
+        err = max(err, e)
+        assert e <= rtol, f"dnj_segment_float differs from its plain " \
+                          f"version after joins [{t0}, {t1}) at n={n}: {e}"
+        stops = int(st["first_inexact"]), int(ref["first_inexact"])
+        assert stops[0] == stops[1], stops
+        if stops[0] >= 0:
+            stop = stops[0]
+            break
+    done = stop if stop >= 0 else joins
+    out = res[key] = {
+        "n": n, "dtype": str(D.dtype), "flags": prep[2], "joins": done,
+        "segments": len(seg_ms), "rtol": rtol,
+        ("limbs_max_rel_err" if rtol else "max_abs_err"): err,
+        "state_max_rel_diff": state_diff,
+        "exact_range_ends_at_join": stop,
+        "ms_per_join": sum(seg_ms) / max(done, 1),
+        "first_segment_ms": seg_ms[0], "first_segment_plain_ms": plain_ms,
+        "first_segment_bound_ms": bytes_ms(seg_bytes[0]),
+        "bound_ms_per_join": bytes_ms(sum(seg_bytes)) / max(done, 1)}
+    log(f"dnj_segment_float ({D.dtype}, instance {prep[2]}) equals "
+        f"dnj_segment_float_plain at every boundary of {CHECK_SEG} joins "
+        f"over the first {done} joins at n={n} ("
+        + (f"picks equal, limbs within {rtol} of max(|x|, 1): largest "
+           f"{err:.3g}; D, sD and Q within {state_diff:.3g}" if rtol
+           else f"max_abs_err {err}")
+        + (f"; both stop where the exact range ends, join {stop}"
+           if stop >= 0 else "")
+        + f"); card ms per join {out['ms_per_join']:.5f}, bound "
+        f"{out['bound_ms_per_join']:.7f}; first segment {seg_ms[0]:.3f} "
+        f"ms, plain {plain_ms:.3f} ms")
+    del st, ref
+    return out
+
+
+def float_agreement(D, n, joins, res, key):
+    """dnj_segment_float and dnj_segment_float_plain, untracked, over the
+    first `joins` joins on copies of D, one launch and one plain segment:
+    where sums leave the exact range they run in other orders, so the
+    first join whose pick differs and the largest relative difference
+    of the limbs before it are printed, not asserted."""
+    st, ref = float_state(D.clone(), n), float_state(D, n)
+    segment_float.dnj_segment_float(*float_args(st), 0, joins, n)
+    segment_float.dnj_segment_float_plain(*float_args(ref), 0, joins, n)
+    same = ((st["I"] == ref["I"]) & (st["J"] == ref["J"]))[:joins].cpu()
+    first = joins if bool(same.all()) else int((~same).int().argmax())
+    lim = {k: v[:first] for k, v in st.items() if k in ("LI", "LJ")}
+    rl = {k: v[:first] for k, v in ref.items() if k in ("LI", "LJ")}
+    out = res[key] = {"n": n, "dtype": str(D.dtype), "joins": joins,
+                      "picks_equal_to_join": first,
+                      "limbs_max_rel_diff": float_err(lim, rl, True,
+                                                      ("LI", "LJ"))}
+    log(f"dnj_segment_float ({D.dtype}) untracked at n={n}: picks equal to "
+        f"the plain loop's for the first {first} of {joins} joins, limbs "
+        f"within {out['limbs_max_rel_diff']:.3g} of max(|x|, 1) there")
+    del st, ref
+    return out
+
+
+def float_tree_at_scale(D8, n, res):
+    """The whole tree at n in float64 on the integer matrix D8: first the
+    engine with the exact range tracked, as the default route runs it,
+    on the card alone (the join where the run leaves the range, if it
+    does); then through build_tree_float untracked (the route of
+    CCPHYLO_TORCH_ENGINE=device64): the seconds of the host's part (the
+    square matrix and its upload), of the engine's init and of its
+    joins, and of the Newick; joins/s, launches and the peak memory on
+    the card; the tree's shape asserted."""
+    try:
+        te.dnj_joins(D8.double(), n, exact_sums=True)
+        stop = None
+    except te.InexactSums as e:
+        stop = e.join
+    torch.cuda.empty_cache()
+    iu = torch.tril_indices(n, n, -1, device=D8.device)
+    flat = D8[iu[0], iu[1]].double().cpu().numpy()
+    del iu
+    times, out = {}, {}
+    real = {k: getattr(te, k) for k in ("dnj_joins", "_new_state",
+                                          "_records_to_newick")}
+
+    def timed(name):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = real[name](*a, **k)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            return out[name]
+        return call
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    for k in real:
+        setattr(te, k, timed(k))
+    try:
+        nwk, t = synced(lambda: te.build_tree_float(
+            flat, n, iso_names(n), dtype=torch.float64))
+    finally:
+        for k, v in real.items():
+            setattr(te, k, v)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in build.launches.items() if v}
+    assert launches == {"dnj_segment_float": -(-(n - 2) // segmenting.SEG)}, \
+        launches
+    I, J = out["dnj_joins"][0][:n - 2], out["dnj_joins"][1][:n - 2]
+    assert_tree_shape(nwk, I, J, n)
+    engine_s = times["dnj_joins"] - times["_new_state"]
+    r = res[f"float_tree_{n}"] = {
+        "n": n, "s": t, "joins_per_s": (n - 2) / engine_s,
+        "init_s": times["_new_state"], "engine_s": engine_s,
+        "newick_s": times["_records_to_newick"],
+        "host_s": t - times["dnj_joins"] - times["_records_to_newick"],
+        "launches": launches, "peak_bytes": peak,
+        "exact_range_ends_at_join": stop, "newick_bytes": len(nwk)}
+    log(f"tree n={n} -m dnj float64 through build_tree_float: {t:.1f} s; "
+        f"engine {engine_s:.3f} s, {r['joins_per_s']:,.1f} joins/s, init "
+        f"{r['init_s']:.3f} s, square matrix and upload {r['host_s']:.1f} "
+        f"s, Newick {r['newick_s']:.1f} s; launches {launches}; peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB; tracked, the run "
+        + ("keeps float64's exact range to the end" if stop is None else
+           f"leaves float64's exact range before join {stop} (the default "
+           "route would hand it to the host engine there)"))
+    return r
+
+
+def float_at_scale(D8, n, res):
+    """dnj_segment_float on the float64 copy of the integer matrix D8 (n
+    = 32768: 8.6 GB): held to its plain version every CHECK_SEG joins of
+    the first CHECKED_JOINS (its first launch the `kernels` line's), the
+    float32 instance the same way with the exact range tracked (bit-equal
+    until both stop where it ends), then untracked beside the plain loop
+    (`float_agreement`); then the whole tree in float64."""
+    h = held_float(D8.double(), n, CHECKED_JOINS, res,
+                   f"segment_float_check_{n}")
+    res.setdefault("max_abs_err", {})["dnj_segment_float"] = max(
+        res["max_abs_err"].get("dnj_segment_float", 0), h["max_abs_err"])
+    res.setdefault("kernel_ms", {})["dnj_segment_float"] = (
+        h["first_segment_ms"], h["first_segment_plain_ms"])
+    res.setdefault("bound_ms", {})["dnj_segment_float"] = \
+        h["first_segment_bound_ms"]
+    h32 = held_float(D8.float(), n, CHECKED_JOINS, res,
+                     f"segment_float_check_{n}_float32", exact=True)
+    res["max_abs_err"]["dnj_segment_float"] = max(
+        res["max_abs_err"]["dnj_segment_float"], h32["max_abs_err"])
+    float_agreement(D8.float(), n, CHECKED_JOINS, res,
+                    f"segment_float_agreement_{n}_float32")
+    torch.cuda.empty_cache()
+    float_tree_at_scale(D8, n, res)
+
+
+# ---------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 
 
@@ -1207,6 +1528,9 @@ def phase_scale(dev, g, res):
         np.testing.assert_array_equal(np.asarray(prefix[name])[:k],
                                       ours.cpu().numpy()[:k], err_msg=name)
     log(f"first {k} joins equal the plain-scan run")
+    # the float engine's segment kernel on this matrix in float64 (and
+    # float32), then its whole tree
+    float_at_scale(D8, n, res)
     return D8
 
 
@@ -1896,8 +2220,8 @@ def exact_range(flat, n, dev, every=64, method="dnj"):
     exact).  Complete matrices only.  Returns (the engine's final state,
     statistics); run_s is the seconds of its joins alone."""
     D = torch.from_numpy(te.square_matrix(flat, n)).to(dev)
-    if method == "dnj":
-        st, seg = te._new_state(D, n), te._dnj_segment
+    if method == "dnj":  # one dnj_segment_float launch a stretch
+        st, seg = te._new_state(D, n), te._run_segment
     else:
         st, seg = he._new_state(D, n, method)
         seg = functools.partial(seg, method=method)
@@ -1917,6 +2241,110 @@ def exact_range(flat, n, dev, every=64, method="dnj"):
         out["run_s"] += synced(lambda: seg(st, t0, min(t0 + every, n - 2),
                                            n))[1]
     return st, out
+
+
+def plain_stop(flat, n, dev) -> int:
+    """The join at which dnj_segment_float_plain, with the exact range
+    tracked, stops on the card (-1: none)."""
+    st = float_state(torch.from_numpy(te.square_matrix(flat, n)).to(dev), n,
+                     exact=True)
+    for t0 in range(0, n - 2, CHECK_SEG):
+        segment_float.dnj_segment_float_plain(
+            *float_args(st), t0, min(t0 + CHECK_SEG, n - 2), n)
+        if int(st["first_inexact"]) >= 0:
+            break
+    return int(st["first_inexact"])
+
+
+def float_turns(flat, n, nwk, res):
+    """tree -m dnj on float64 at n through tree_cmd._dispatch_build on the
+    default route, its segments run by the kernel (one dnj_segment_float
+    launch a segment) and by the plain loop, in turns: kernel, plain,
+    plain, kernel.  For each: joins/s, the launches of the port's
+    kernels, and the calls that wait for the card (host reads and
+    fences, as torch.cuda.set_sync_debug_mode("warn") reports them) per
+    join; every Newick equal to the default route's `nwk`.  The first
+    run's launches are the `kernels` line's.  Then joins 64..128 of
+    each loop under torch.profiler: kernel launches and device-to-host
+    copies per join."""
+    from torch.profiler import ProfilerActivity, profile
+    real = segment_float.dnj_segment_float
+
+    def plain(*a, prep=None):
+        return segment_float.dnj_segment_float_plain(*a)
+
+    runs = res["float_turns"] = []
+    for kind in ("kernel", "plain", "plain", "kernel"):
+        segment_float.dnj_segment_float = real if kind == "kernel" else plain
+        build.reset_launches()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out, t, ran = dispatch(flat, n, "dnj", "d")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        finally:
+            segment_float.dnj_segment_float = real
+        launches = {k: v for k, v in build.launches.items() if v}
+        if "float_path_launches" not in res:
+            res["float_path_launches"] = dict(build.launches)
+        waits = sum("synchroniz" in str(w.message) for w in caught)
+        assert ran == "float64" and out == nwk, (kind, ran)
+        assert launches == ({"dnj_segment_float": -(-(n - 2)
+                                                    // segmenting.SEG)}
+                            if kind == "kernel" else {}), launches
+        assert kind == "kernel" or waits > n - 2, waits
+        runs.append({"loop": kind, "s": t, "joins_per_s": (n - 2) / t,
+                     "launches": launches,
+                     "launches_per_join": sum(launches.values()) / (n - 2),
+                     "waits_per_join": waits / (n - 2)})
+    log(f"tree n={n} -m dnj float64 through _dispatch_build, in turns: "
+        + "; ".join(f"{r['loop']} {r['joins_per_s']:,.1f} joins/s, "
+                    f"{r['launches_per_join']:.5f} port launches and "
+                    f"{r['waits_per_join']:.3f} waits for the card a join"
+                    for r in runs))
+    # one profiler session for both loops, the windows told apart by a
+    # spin between them
+    D0 = torch.from_numpy(te.square_matrix(flat, n)).to("cuda")
+    loops = (("kernel", te._run_segment), ("plain", te._dnj_segment))
+    sts = {kind: te._new_state(D0.clone(), n) for kind, _ in loops}
+    for kind, seg in loops:
+        seg(sts[kind], 0, PROFILE_JOINS, n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x, (kind, seg) in enumerate(loops):
+            if x:
+                torch.cuda._sleep(SEG_SPIN)
+            seg(sts[kind], PROFILE_JOINS, 2 * PROFILE_JOINS, n)
+            torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    cut = min(e.time_range.start for e in ev if "spin" in e.name.lower())
+    window = res["float_profile"] = {}
+    for kind, part in (("kernel", [e for e in ev
+                                   if e.time_range.start < cut]),
+                       ("plain", [e for e in ev if e.time_range.start > cut
+                                  and "spin" not in e.name.lower()])):
+        kernels = [e for e in part if "Memcpy" not in e.name
+                   and "Memset" not in e.name]
+        reads = [e for e in part if "Memcpy DtoH" in e.name]
+        assert kernels and reads, (kind, "the profiler saw no activity")
+        window[kind] = {
+            "launches_per_join": len(kernels) / PROFILE_JOINS,
+            "host_reads_per_join": len(reads) / PROFILE_JOINS,
+            "device_ms_per_join": sum(e.time_range.elapsed_us()
+                                      for e in kernels) / 1e3
+            / PROFILE_JOINS}
+    del sts
+    log(f"joins {PROFILE_JOINS}..{2 * PROFILE_JOINS} at n={n} under "
+        "torch.profiler: " + "; ".join(
+            f"{k} {v['launches_per_join']:.3f} launches, "
+            f"{v['host_reads_per_join']:.3f} host reads, "
+            f"{v['device_ms_per_join']:.4f} ms of kernels a join"
+            for k, v in window.items()))
 
 
 def phase_engines(dev, g, res, flat=None):
@@ -1956,6 +2384,7 @@ def engines_on_card(dev, g, res, flat, pool):
     for method in TREE_METHODS:
         want = "float64" if method == "dnj" else "hclust/float64"
         runs[method] = card_route(flat, n, method, "d", want, handed, method)
+    float_turns(flat, n, runs["dnj"][3], res)
     runs["dnj -s"] = card_route(flat, n, "dnj", "s", "u16/float64", handed,
                                 "dnj -s")
     nwk, t, ran = dispatch(flat, n, "dnj", "b", "device64")
@@ -1985,6 +2414,9 @@ def engines_on_card(dev, g, res, flat, pool):
     I32, J32 = (a[:joins] for a in rec32[:2])
     nwk32 = te._records_to_newick(*rec32[:5], n, iso_names(n), 0, 9)
     assert_tree_shape(nwk32, I32, J32, n)
+    held_float(torch.from_numpy(te.square_matrix(flat, n)).to(
+        dev, torch.float32), n, joins, res,
+        f"segment_float_check_{n}_float32", exact=True)
 
     # a non-integer copy: the default route is the host, with its note;
     # device64 -m upgma runs on the card
@@ -2043,10 +2475,15 @@ def engines_on_card(dev, g, res, flat, pool):
         assert ran == ("float64" if method == "dnj" else "hclust/float64")
         assert nwk.count(b"iso") == n
         missing[method] = (nwk, ran)
+    # the kernel's instance with missing cells against the plain loop on
+    # the whole run: no sum is exact, so picks equal and floats within
+    # 1e-12 of max(|x|, 1)
+    held_float(torch.from_numpy(te.square_matrix(mflat, n)).to(dev), n,
+               n - 2, res, f"segment_float_check_missing_{n}", rtol=1e-12)
 
     # how much of float64's exact range the float64 runs above used
     st64, out["exact_range_snp"] = exact_range(flat, n, dev, every=128)
-    I64, J64 = st64["I"][:joins], st64["J"][:joins]
+    I64, J64 = (st64[k][:joins].cpu().numpy() for k in ("I", "J"))
     out["exact_range_random"] = exact_range(rflat, n, dev, every=128)[1]
     for key in ("exact_range_snp", "exact_range_random"):
         s = out[key]
@@ -2081,6 +2518,10 @@ def engines_on_card(dev, g, res, flat, pool):
         to_host = ran == "exact"
         s.update(default_route=ran, s=t, note=note.getvalue().strip())
         assert to_host == ("exact range" in note.getvalue()), (method, s)
+        if method == "dnj":  # the join the plain loop stops at, tracked
+            s["plain_loop_stops_at_join"] = plain_stop(cflat, nc, dev)
+            assert to_host and f"before join {s['plain_loop_stops_at_join']}" \
+                in s["note"], s
         # the tracking must see what the sampled states show
         assert to_host or not (s["inexact_sums"] or s["sum_bits"] > 53), s
         if not to_host:
@@ -2212,7 +2653,8 @@ def phase_sharded(dev, res, flat=None):
         st, rng = exact_range(dflat, nd, dev, every=2048)
         t_f64 = rng["run_s"]
         T = nd - 2
-        ref = [st["I"], st["J"], st["LI"], st["LJ"], float(st["D"][1, 0])]
+        ref = [*(st[k].cpu().numpy() for k in ("I", "J", "LI", "LJ")),
+               float(st["D"][1, 0])]
         for name, a, b in zip(("I", "J"), recs, ref):
             np.testing.assert_array_equal(a[:T], b[:T], err_msg=name)
         # limbs and the last distance: this matrix leaves float64's exact
@@ -2272,8 +2714,10 @@ def phase_profile(dev, res):
     g.manual_seed(SEED + 1)
     D0 = torch.from_numpy(te.square_matrix(snp_flat(dev, g, n, L_DIST), n))
     out = res["profile"] = {}
-    for method in TREE_METHODS:
-        if method == "dnj":
+    for method in TREE_METHODS + ("dnj plain loop",):
+        if method == "dnj":  # one dnj_segment_float launch a stretch
+            st, seg = te._new_state(D0.to(dev), n), te._run_segment
+        elif method == "dnj plain loop":
             st, seg = te._new_state(D0.to(dev), n), te._dnj_segment
         else:
             st, seg = he._new_state(D0.to(dev), n, method)
@@ -2613,7 +3057,8 @@ def phase_dryrun(dev, res):
                           for k in dryrun.STAGES}
     out["launches"] = {k[len("launches/"):]: int(v) for k, v in card.items()
                        if k.startswith("launches/")}
-    for k in ("snp_expand_shared", "dnj_segment", "qrow_mins_slots"):
+    for k in ("snp_expand_shared", "dnj_segment", "qrow_mins_slots",
+              "dnj_segment_float"):
         assert out["launches"][k] > 0, out["launches"]
     log(f"dry run: entry() {out['entry_s']:.4f} s, equal to its CPU "
         f"result; dryrun_multichip(1) on the card equals it on CPU tensors "
