@@ -79,8 +79,9 @@ QUERIES = {
     "dnj_join": {"dnj_join_max_blocks": []},
     # flags, n
     "dnj_segment": {"dnj_segment_max_blocks": [_I, _I]},
-    # flags; G, n, flags
-    "dnj_segment_float": {"dnj_segment_float_max_blocks": [_I],
+    # flags, n, G; flags, n, G; G, n, flags
+    "dnj_segment_float": {"dnj_segment_float_max_blocks": [_I, _I, _I],
+                          "dnj_segment_float_fits": [_I, _I, _I],
                           "dnj_segment_float_scratch_bytes": [_I, _I, _I]},
 }
 
@@ -90,6 +91,8 @@ launches = {fn: 0 for eps in ENTRY_POINTS.values() for fn in eps}
 launches["qrow_mins_slots"] = 0
 
 _libs: dict[str, ctypes.CDLL] = {}
+# a variant's key -> (its source stem, its -D flags); see `variant`
+_variants: dict[str, tuple[str, list[str]]] = {}
 
 
 def reset_launches() -> None:
@@ -108,52 +111,74 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
-def _lib_path(stem: str) -> str:
+def variant(stem: str, **defines) -> str:
+    """A build of csrc/<stem>.cu with the macros `defines` (nvcc's -D
+    NAME=value) beside its default build, to time a kernel's
+    compile-time constants in turns; returns the key that `launch` and
+    `query` take in place of the stem.  `build_all` builds it with the
+    rest at its first use."""
+    flags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
+    key = " ".join([stem, *flags])
+    _variants[key] = (stem, flags)
+    return key
+
+
+def _source(key: str) -> tuple[str, list[str]]:
+    return _variants.get(key, (key, []))
+
+
+def _lib_path(key: str) -> str:
+    stem, defines = _source(key)
     h = hashlib.sha256()
     for path in [os.path.join(CSRC, stem + ".cu"),
                  *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
         with open(path, "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
 def build_all() -> float:
-    """Compile every kernel library that is not built yet, in parallel.
-    Returns the wall seconds spent; raises with nvcc's output on
-    failure."""
+    """Compile every kernel library (and `variant`) that is not built
+    yet, in parallel.  Returns the wall seconds spent; raises with nvcc's
+    output on failure."""
     t0 = time.perf_counter()
-    todo = [s for s in ENTRY_POINTS if not os.path.exists(_lib_path(s))]
+    todo = [k for k in [*ENTRY_POINTS, *_variants]
+            if not os.path.exists(_lib_path(k))]
     if not todo:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for stem in todo:
+    for key in todo:
+        stem, defines = _source(key)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp,
                os.path.join(CSRC, stem + ".cu")]
-        procs.append((stem, tmp, subprocess.Popen(
+        procs.append((key, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
-    for stem, tmp, p in procs:
+    for key, tmp, p in procs:
         out, _ = p.communicate()
         if p.returncode == 0:
-            os.replace(tmp, _lib_path(stem))  # atomic: parallel-safe
+            os.replace(tmp, _lib_path(key))  # atomic: parallel-safe
         else:
             os.unlink(tmp)
-            errors.append(f"{stem}.cu:\n{out.decode(errors='replace')}")
+            stem, defines = _source(key)
+            errors.append(f"{' '.join([stem + '.cu', *defines])}:\n"
+                          f"{out.decode(errors='replace')}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return time.perf_counter() - t0
 
 
-def _lib(stem: str) -> ctypes.CDLL:
-    lib = _libs.get(stem)
+def _lib(key: str) -> ctypes.CDLL:
+    lib = _libs.get(key)
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(_lib_path(stem))
+        stem = _source(key)[0]
+        lib = ctypes.CDLL(_lib_path(key))
         for fn, argtypes in {**ENTRY_POINTS[stem],
                              **QUERIES.get(stem, {})}.items():
             f = getattr(lib, fn)
@@ -161,15 +186,16 @@ def _lib(stem: str) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        _libs[stem] = lib
+        _libs[key] = lib
     return lib
 
 
 def launch(stem: str, fn: str, *args, device: torch.device,
            count: str | None = None) -> None:
-    """Call C entry point `fn` of csrc/<stem>.cu on the current stream of
-    `device`; raise if the launch reports an error.  The launch is
-    counted under `count` (default: `fn`)."""
+    """Call C entry point `fn` of csrc/<stem>.cu (or of the `variant`
+    `stem`) on the current stream of `device`; raise if the launch
+    reports an error.  The launch is counted under `count` (default:
+    `fn`)."""
     lib = _lib(stem)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(*args, stream)

@@ -60,10 +60,15 @@ exits non-zero, no exception is caught:
    float engine's segment kernel `dnj_segment_float` on the float64
    copy of this matrix (8.6 GB): held to `dnj_segment_float_plain` at
    every boundary of CHECK_SEG joins of the first CHECKED_JOINS, every
-   state array equal (`held_float`; its first launch the `kernels`
-   line's, timed by CUDA events, with the plain loop and the byte
-   bound); the float32 instance the same way on the float32 copy, the
-   exact range tracked (bit-equal until both stop at the same join),
+   state array equal (`held_float`), in its default design at this
+   size, the candidate list (its first launch the `kernels` line's,
+   timed by CUDA events, with the plain loop and the byte bound; the
+   list overflows there, so its top-ups are held too, asserted), and in
+   the first design (ROWS); the two designs timed in turns, list, rows,
+   rows, list, and each one's time by part of a join
+   (`float_breakdown`, the PROFILE clock counts of every block); the
+   float32 instance held the same way in both designs on the float32
+   copy, the exact range tracked (bit-equal until both stop at the same join),
    then untracked beside the plain loop (`float_agreement`: the first
    join whose pick differs, printed); and the whole tree in float64
    (`float_tree_at_scale`: tracked on the card, the join where it
@@ -91,21 +96,26 @@ exits non-zero, no exception is caught:
    tree_cmd._dispatch_build with no variable set: each Newick
    byte-equal to the host exact engine's, the engine that ran
    asserted, joins/s printed; dnj on float64 and float32 state runs
-   one dnj_segment_float launch a segment.  dnj through the default
-   route again with the kernel and with the plain loop in turns
+   one dnj_segment_float launch a segment (the first design, ROWS, by
+   default at this size; the candidate-list design held to the plain
+   loop on the first CHECKED_JOINS joins, complete, where its list
+   overflows (asserted), and with missing cells, and timed in turns
+   against it by `float_breakdown`).  dnj through the default route
+   again with the kernel and with the plain loop in turns
    (`float_turns`: joins/s, launches and waits for the card per join,
    and 64 joins of each loop under torch.profiler; the first run's
    launches are the `kernels` line's).  Then dnj on u16 cells (-s) and on u8
    cells (`device64` -b), both byte-equal to the host engine; dnj,
    upgma, cf and hnj on a matrix of random integers in [0, 25), far
-   from additive and dense in ties, byte-equal too (the default route
+   from additive and dense in ties (the hclust engines on its first
+   N_RANDOM taxa), byte-equal too (the default route
    tracks float64's exact range: a run whose row sums leave it is
    handed to the host engine with a note, and is then timed under
    `device64`, its bytes printed, not asserted); the same with 12%
    of the cells missing (the default route goes to the host with its
    note; `device64` runs on the card, equality printed; the kernel's
-   instance with missing cells held to the plain loop over the whole
-   run, picks equal and limbs within 1e-12 of max(|x|, 1)); dnj on
+   instance with missing cells held to the plain loop over the first
+   SEG joins, picks equal and limbs within 1e-12 of max(|x|, 1)); dnj on
    float32 state (`device`; shape only, agreement with the float64
    run printed; the kernel's float32 instance held to the plain loop
    with the exact range tracked, bit-equal until both stop); how many
@@ -115,11 +125,10 @@ exits non-zero, no exception is caught:
    bits dnj and upgma reach and the default route (dnj leaves the exact
    range and goes to the host with its note, before the join at which
    the plain loop with the exact range tracked stops); a non-integer
-   copy of the
-   SNP matrix (the default route goes to the host with its note,
-   `device64` -m upgma runs on the card); and dnj in float64 at
-   n = N_DEPTH from phase 4's outbreak
-   model, timed, byte-equal to the host exact engine (the depth is cut
+   copy of the SNP matrix's first N_RANDOM taxa (the default route goes
+   to the host with its note, `device64` -m upgma runs on the card);
+   and dnj in float64 at n = N_DEPTH from phase 4's outbreak model,
+   timed, byte-equal to the host exact engine (the depth is cut
    to leave the script's time limit to the other phases: the host
    engine needs 4-5 minutes at n = 8192; the sharded phase runs this
    engine at n = N_SHARDED).  The host engine's runs are
@@ -184,9 +193,16 @@ exits non-zero, no exception is caught:
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
 named phases (kernels, main_path, scale, parity, streamed, engines,
-sharded, matdist, cli, dryrun, profile) and
+sharded, matdist, cli, dryrun, profile, float_sizes) and
 prints their results without the contract lines: for work on one
-phase.  `profile` runs only when named, and on its own: after the
+phase.  `float_sizes` runs only when named (`phase_float_sizes`):
+dnj_segment_float's designs in turns where the default switches
+between them (ROWS and the list at n = 2048 to 4096; the list from the
+copy of Q and from slices at 8192 to 24576), a whole float64 run at n
+= 32768 in each of ROWS and the list, segment by segment, and builds
+of the kernel with other constants (the list's capacity, a piece's
+units) in turns with the source's.  `profile` runs only when named,
+and on its own: after the
 `engines` phase in one process its torch.profiler windows see no
 device activity on the card (the engines phase's own window, taken
 alone before it, does not cause this).  It times 64 joins of each
@@ -208,6 +224,7 @@ import gzip
 import hashlib
 import io
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -245,7 +262,8 @@ N_SCALE, L_SCALE = 32768, 100_000
 # the depths below were cut in turn as phases were added, to keep the
 # script inside its time limit (PERF.md section 4)
 N_DEPTH = 3072       # the float64 DNJ engine's run at depth
-N_CATERPILLAR = 2048  # exact_range on a matrix that joins along a chain
+N_CATERPILLAR = 1024  # exact_range on a matrix that joins along a chain
+N_RANDOM = 1024      # the hclust engines on the random matrix's first taxa
 N_SHARDED = 4096     # the sharded DNJ engine beside the float64 engine
 PROFILE_JOINS = 64   # joins under torch.profiler in the `profile` phase
 TREE_METHODS = ("dnj", "upgma", "ff", "cf", "hnj", "nj", "mn")
@@ -905,7 +923,7 @@ def plain_float_joins(st, t0, t1, n) -> int:
     return nbytes
 
 
-def held_float(D, n, joins, res, key, exact=False, rtol=0.0):
+def held_float(D, n, joins, res, key, exact=False, rtol=0.0, flags=None):
     """dnj_segment_float held to dnj_segment_float_plain on the card over
     the first `joins` joins of a run on the matrix D (the plain loop's;
     the kernel runs on a copy): one launch per CHECK_SEG joins, compared
@@ -918,9 +936,12 @@ def held_float(D, n, joins, res, key, exact=False, rtol=0.0):
     both loops, at the same join, and the check.  Each launch is timed
     on the card (CUDA events, queued behind a spin), the plain loop on
     the first segment on a copy; the bound counts each join's bytes
-    (`float_join_bytes`)."""
+    (`float_join_bytes`).  `flags`: the kernel's design
+    (`dnj_segment_float_prepare`'s default if None); the top-ups of the
+    candidate list are counted."""
     st = float_state(D.clone(), n, exact)
-    prep = segment_float.dnj_segment_float_prepare(*float_args(st), n)
+    prep = segment_float.dnj_segment_float_prepare(*float_args(st), n,
+                                                   flags=flags)
     ref = float_state(D, n, exact)
     seg_ms, seg_bytes, err, stop, plain_ms = [], [], 0.0, -1, None
     state_diff = 0.0
@@ -971,8 +992,10 @@ def held_float(D, n, joins, res, key, exact=False, rtol=0.0):
         "ms_per_join": sum(seg_ms) / max(done, 1),
         "first_segment_ms": seg_ms[0], "first_segment_plain_ms": plain_ms,
         "first_segment_bound_ms": bytes_ms(seg_bytes[0]),
-        "bound_ms_per_join": bytes_ms(sum(seg_bytes)) / max(done, 1)}
-    log(f"dnj_segment_float ({D.dtype}, instance {prep[2]}) equals "
+        "bound_ms_per_join": bytes_ms(sum(seg_bytes)) / max(done, 1),
+        "refills": segment_float.segment_float_refills(prep)}
+    log(f"dnj_segment_float ({D.dtype}, flags {prep[2]}, "
+        f"{out['refills']} refills of the list) equals "
         f"dnj_segment_float_plain at every boundary of {CHECK_SEG} joins "
         f"over the first {done} joins at n={n} ("
         + (f"picks equal, limbs within {rtol} of max(|x|, 1): largest "
@@ -985,6 +1008,85 @@ def held_float(D, n, joins, res, key, exact=False, rtol=0.0):
         f"ms, plain {plain_ms:.3f} ms")
     del st, ref
     return out
+
+
+@contextlib.contextmanager
+def float_build(key):
+    """dnj_segment_float launched from the build `key` (a
+    `build.variant` of its source; None: the source's) inside the
+    block."""
+    old = segment_float.STEM
+    segment_float.STEM = key or old
+    try:
+        yield
+    finally:
+        segment_float.STEM = old
+
+
+def float_breakdown(D, n, joins, turns, res, key):
+    """dnj_segment_float's designs in turns, and where a join's time goes
+    in each: for each (name, prepare's keywords, and "build": a
+    `build.variant` of the kernel) of `turns`, in order, one launch over
+    the first `joins` joins of a run on a copy of D, timed by CUDA
+    events behind a spin, then the same launch with the PROFILE flag:
+    the SM clock cycles block 0 spent in each part of a join
+    (segment_float.PHASES, its waits at barriers included) split the
+    first launch's time."""
+    out = res[key] = {}
+    for name, kw in turns:
+        kw = dict(kw)
+        with float_build(kw.pop("build", None)):
+            r = float_breakdown_turn(D, n, joins, name, kw)
+        out.setdefault(name, []).append(r)
+    return out
+
+
+def float_breakdown_turn(D, n, joins, name, kw) -> dict:
+    """One turn of `float_breakdown`: `dnj_segment_float_prepare`'s
+    keywords `kw`, the build segment_float.STEM."""
+    ms = {}
+    for prof in (0, segment_float.PROFILE):
+        st = float_state(D.clone(), n)
+        kw2 = dict(kw)
+        if prof:
+            kw2["flags"] = segment_float.prepare_flags(
+                st["D"], n, kw.get("flags")) | prof
+        prep = segment_float.dnj_segment_float_prepare(*float_args(st), n,
+                                                       **kw2)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SEG_SPIN)
+        a.record()
+        segment_float.dnj_segment_float(*float_args(st), 0, joins, n,
+                                        prep=prep)
+        b.record()
+        torch.cuda.synchronize()
+        ms[prof] = a.elapsed_time(b)
+        del st
+    cyc = segment_float.segment_float_profile(prep)
+    total = sum(cyc.values())
+    # every block's cycles by part, at block 0's rate: the slowest
+    # block's and the mean
+    blk = segment_float.segment_float_block_profile(prep).double() \
+        * (1e3 * ms[prof] / total / joins)
+    r = {"joins": joins, "dtype": str(D.dtype), "flags": prep[2],
+         "blocks_max_us": dict(zip(segment_float.PHASES,
+                                   blk.max(0).values.tolist())),
+         "blocks_mean_us": dict(zip(segment_float.PHASES,
+                                    blk.mean(0).tolist())),
+         "build": segment_float.STEM, "ms_per_join": ms[0] / joins,
+         "profiled_ms_per_join": ms[prof] / joins,
+         "refills": segment_float.segment_float_refills(prep),
+         "us_per_join": {p: 1e3 * ms[0] * c / total / joins
+                         for p, c in cyc.items() if c}}
+    log(f"dnj_segment_float ({name}, {D.dtype}, flags {prep[2]}) n={n}, "
+        f"joins 0-{joins}: {1e3 * ms[0] / joins:.2f} us per join "
+        f"({1e3 * ms[prof] / joins:.2f} with PROFILE, {r['refills']} "
+        "refills); " + ", ".join(
+            f"{p} {v:.2f}" for p, v in r["us_per_join"].items())
+        + "; over the blocks, mean / max: " + ", ".join(
+            f"{p} {r['blocks_mean_us'][p]:.2f} / "
+            f"{r['blocks_max_us'][p]:.2f}" for p in r["us_per_join"]))
+    return r
 
 
 def float_agreement(D, n, joins, res, key):
@@ -1079,29 +1181,163 @@ def float_tree_at_scale(D8, n, res):
     return r
 
 
+def list_flags(n: int) -> int:
+    """The flags of dnj_segment_float's candidate-list design at n rows
+    (what the default takes from segment_float.ROWS_BELOW taxa on)."""
+    return segment_float.default_design(n, max(n, segment_float.ROWS_BELOW))
+
+
+def float_turns_of(n: int) -> list:
+    """dnj_segment_float's two designs in turns for `float_breakdown`:
+    the candidate list, the first design (ROWS), the same, the list."""
+    lst, rows = ("list", {"flags": list_flags(n)}), \
+        ("rows", {"flags": segment_float.ROWS})
+    return [lst, rows, rows, lst]
+
+
 def float_at_scale(D8, n, res):
     """dnj_segment_float on the float64 copy of the integer matrix D8 (n
     = 32768: 8.6 GB): held to its plain version every CHECK_SEG joins of
-    the first CHECKED_JOINS (its first launch the `kernels` line's), the
-    float32 instance the same way with the exact range tracked (bit-equal
-    until both stop where it ends), then untracked beside the plain loop
+    the first CHECKED_JOINS in the default design, the candidate list
+    (its first launch the `kernels` line's; its list overflows there:
+    top-ups from the slices of Q, asserted), and in the first design
+    (ROWS); the two designs timed in turns, and where a join's time goes
+    in each (`float_breakdown`); the float32 instance held the same
+    way in both designs with the exact range tracked (bit-equal until
+    both stop where it ends), then untracked beside the plain loop
     (`float_agreement`); then the whole tree in float64."""
-    h = held_float(D8.double(), n, CHECKED_JOINS, res,
+    D64 = D8.double()
+    h = held_float(D64.clone(), n, CHECKED_JOINS, res,
                    f"segment_float_check_{n}")
+    assert h["flags"] & segment_float.ROWS == 0, h["flags"]
+    assert h["refills"] > 0, h  # the list overflowed: its top-ups held
     res.setdefault("max_abs_err", {})["dnj_segment_float"] = max(
         res["max_abs_err"].get("dnj_segment_float", 0), h["max_abs_err"])
     res.setdefault("kernel_ms", {})["dnj_segment_float"] = (
         h["first_segment_ms"], h["first_segment_plain_ms"])
     res.setdefault("bound_ms", {})["dnj_segment_float"] = \
         h["first_segment_bound_ms"]
-    h32 = held_float(D8.float(), n, CHECKED_JOINS, res,
-                     f"segment_float_check_{n}_float32", exact=True)
+    x = held_float(D64.clone(), n, CHECKED_JOINS, res,
+                   f"segment_float_check_{n}_rows", flags=segment_float.ROWS)
     res["max_abs_err"]["dnj_segment_float"] = max(
-        res["max_abs_err"]["dnj_segment_float"], h32["max_abs_err"])
+        res["max_abs_err"]["dnj_segment_float"], x["max_abs_err"])
+    float_breakdown(D64, n, CHECKED_JOINS, float_turns_of(n), res,
+                    f"float_breakdown_{n}")
+    del D64
+    torch.cuda.empty_cache()
+    for key, kw in (("", {}), ("_rows", {"flags": segment_float.ROWS})):
+        h32 = held_float(D8.float(), n, CHECKED_JOINS, res,
+                         f"segment_float_check_{n}_float32{key}", exact=True,
+                         **kw)
+        res["max_abs_err"]["dnj_segment_float"] = max(
+            res["max_abs_err"]["dnj_segment_float"], h32["max_abs_err"])
     float_agreement(D8.float(), n, CHECKED_JOINS, res,
                     f"segment_float_agreement_{n}_float32")
     torch.cuda.empty_cache()
     float_tree_at_scale(D8, n, res)
+
+
+def float_whole_run(D, n, flags, res, key, build_key=None):
+    """A whole float64 run of dnj_segment_float at n on a copy of D in
+    the design `flags` (from the build `build_key`, a `build.variant`;
+    None: the source's), one launch a segment of segmenting.SEG joins,
+    each timed by CUDA events and split by part (PROFILE): us, passes and
+    top-ups of the candidate list a join, by segment."""
+    st = float_state(D.clone(), n)
+    with float_build(build_key):
+        prep = segment_float.dnj_segment_float_prepare(
+            *float_args(st), n, flags=flags | segment_float.PROFILE)
+        rows, prev, passes0, refills0 = [], None, 0, 0
+        for t0 in range(0, n - 2, segmenting.SEG):
+            t1 = min(t0 + segmenting.SEG, n - 2)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            segment_float.dnj_segment_float(*float_args(st), t0, t1, n,
+                                            prep=prep)
+            b.record()
+            torch.cuda.synchronize()
+            ms = a.elapsed_time(b)
+            cyc = segment_float.segment_float_profile(prep)
+            d = {p: c - (prev[p] if prev else 0) for p, c in cyc.items()}
+            prev, tot = cyc, sum(d.values())
+            passes = int(st["stats"][0])
+            refills = segment_float.segment_float_refills(prep)
+            rows.append({"t0": t0, "ms": ms,
+                         "us_per_join": 1e3 * ms / (t1 - t0),
+                         "passes_per_join": (passes - passes0) / (t1 - t0),
+                         "refills": refills - refills0,
+                         "us_per_join_by_part": {
+                             p: 1e3 * ms * c / tot / (t1 - t0)
+                             for p, c in d.items() if c}})
+            passes0, refills0 = passes, refills
+    out = res.setdefault(key, [])
+    r = {"n": n, "flags": prep[2], "build": build_key or "source",
+         "s": sum(x["ms"] for x in rows) / 1e3, "refills": refills,
+         "passes_per_join": passes / (n - 2), "segments": rows}
+    out.append(r)
+    log(f"dnj_segment_float whole run n={n}, flags {prep[2]}, build "
+        f"{r['build']}: {r['s']:.3f} s, {r['passes_per_join']:.3f} passes "
+        f"and {refills / (n - 2):.3f} top-ups a join; us a join by "
+        "segment: " + ", ".join(f"{x['t0']}: {x['us_per_join']:.1f}"
+                                for x in rows[::4]))
+    del st, prep
+    return r
+
+
+# the kernel's constants timed in turns with the source's (kListK 1,
+# kPieceUnits 2048) by `phase_float_sizes`: (name, the -D macros)
+FLOAT_CONSTANTS = (("list 2K", {"DNJ_FLOAT_LIST_K": 2}),
+                   ("list 4K", {"DNJ_FLOAT_LIST_K": 4}),
+                   ("piece 512", {"DNJ_FLOAT_PIECE_UNITS": 512}),
+                   ("piece 8192", {"DNJ_FLOAT_PIECE_UNITS": 8192}))
+
+
+def phase_float_sizes(dev, res):
+    """Only when named: dnj_segment_float's designs in turns where the
+    default switches between them (`float_breakdown`, first SEG joins):
+    ROWS and the list (list, rows, rows, list) on outbreak matrices of
+    n = 2048 (1 Mbp), 2560, 3072, 4096 (100 kbp) taxa around
+    segment_float.ROWS_BELOW; the list from the copy of Q and from
+    slices of Q (stage, slices, slices, stage) on the first 8192, 16384
+    and 24576 taxa of the scale matrix (float64), around STAGE_Q_ROWS.
+    Then builds of the kernel with other constants (FLOAT_CONSTANTS)
+    and the source's, in turns (the source first and last): at n = 4096
+    on the first SEG joins, and whole float64 runs at N_SCALE
+    (`float_whole_run`), after a whole run there in each of ROWS and
+    the list."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    for n in (2048, 2560, 3072, 4096):
+        flat = snp_flat(dev, g, n, L_DIST if n == 2048 else L_SCALE)
+        D = torch.from_numpy(te.square_matrix(flat, n)).to(dev)
+        float_breakdown(D, n, min(segmenting.SEG, n - 2), float_turns_of(n),
+                        res, f"float_sizes_{n}")
+        if n == 4096:
+            D4 = D
+        del D
+    g.manual_seed(SEED)
+    D64 = scale_matrix(dev, g).double()
+    for n in (8192, 16384, 24576):
+        stage = ("stage", {"flags": segment_float.STAGE_Q})
+        slices = ("slices", {"flags": 0})
+        float_breakdown(D64[:n, :n].contiguous(), n, segmenting.SEG,
+                        [stage, slices, slices, stage], res,
+                        f"float_stage_{n}")
+    for name, flags in (("list", list_flags(N_SCALE)),
+                        ("rows", segment_float.ROWS)):
+        float_whole_run(D64, N_SCALE, flags, res,
+                        f"float_whole_run_{N_SCALE}_{name}")
+    keys = [("source", None)] + [
+        (name, build.variant("dnj_segment_float", **d))
+        for name, d in FLOAT_CONSTANTS]
+    order = keys + keys[::-1]
+    float_breakdown(D4, 4096, segmenting.SEG,
+                    [(name, {"flags": list_flags(4096), "build": key})
+                     for name, key in order], res, "float_constants_4096")
+    del D4
+    for name, key in order:
+        float_whole_run(D64, N_SCALE, list_flags(N_SCALE), res,
+                        f"float_constants_{N_SCALE}_{name}", key)
 
 
 # ---------------------------------------------------------------------
@@ -2110,6 +2346,13 @@ def snp_flat(dev, g, n, L):
     return D[np.tril_indices(n, -1)].astype(np.float64)
 
 
+def taxa(flat) -> int:
+    """The taxa of a loaded ltd matrix of len(flat) cells."""
+    n = int((1 + math.isqrt(8 * len(flat) + 1)) // 2)
+    assert n * (n - 1) // 2 == len(flat), len(flat)
+    return n
+
+
 def random_flat(dev, g, n, lo, hi, drop=0.0):
     """A loaded ltd matrix of random integers in [lo, hi): far from
     additive and dense in ties, so (D_ik + D_kj - D_ij) / 2 gains
@@ -2392,12 +2635,16 @@ def engines_on_card(dev, g, res, flat, pool):
     runs["dnj -b"] = (flat, "dnj", "b", nwk, t, ran)
 
     # the default route on a matrix that is not additive: random
-    # integers in [0, 25), the methods whose host run takes seconds
+    # integers in [0, 25), the methods whose host run takes seconds; the
+    # hclust engines on its first N_RANDOM taxa (a prefix of the flat
+    # lower triangle)
     rflat = random_flat(dev, g, n, 0, 25)
     for method in RANDOM_METHODS:
         want = "float64" if method == "dnj" else "hclust/float64"
         key = method + ", random cells"
-        runs[key] = card_route(rflat, n, method, "d", want, handed, key)
+        nr = n if method == "dnj" else N_RANDOM
+        runs[key] = card_route(rflat[:nr * (nr - 1) // 2], nr, method, "d",
+                               want, handed, key)
 
     # dnj on float32 state (the route of `device`): shape only;
     # agreement with float64 printed
@@ -2417,27 +2664,40 @@ def engines_on_card(dev, g, res, flat, pool):
     held_float(torch.from_numpy(te.square_matrix(flat, n)).to(
         dev, torch.float32), n, joins, res,
         f"segment_float_check_{n}_float32", exact=True)
+    # the candidate-list design at this size (the default takes the first
+    # design here): held to the plain loop on the first CHECKED_JOINS
+    # joins (its list overflows: top-ups from the copy of Q, asserted),
+    # and timed in turns against the first design
+    D64 = torch.from_numpy(te.square_matrix(flat, n)).to(dev)
+    x = held_float(D64.clone(), n, CHECKED_JOINS, res,
+                   f"segment_float_check_{n}_list", flags=list_flags(n))
+    assert x["refills"] > 0, x
+    float_breakdown(D64, n, segmenting.SEG, float_turns_of(n), res,
+                    f"float_breakdown_{n}")
+    del D64
 
-    # a non-integer copy: the default route is the host, with its note;
-    # device64 -m upgma runs on the card
+    # a non-integer copy of the first N_RANDOM taxa: the default route is
+    # the host, with its note; device64 -m upgma runs on the card
     noise = torch.rand(flat.shape[0], dtype=torch.float64, device=dev,
                        generator=g).cpu().numpy()
-    fflat = flat + 0.5 * noise
+    nr = N_RANDOM
+    fflat = (flat + 0.5 * noise)[:nr * (nr - 1) // 2]
     note = io.StringIO()
     with contextlib.redirect_stderr(note):
-        nwk_host, t_host, ran = dispatch(fflat, n, "upgma", "d")
+        nwk_host, t_host, ran = dispatch(fflat, nr, "upgma", "d")
     assert ran == "exact", ran
     assert note.getvalue().count("\n") == 1 \
         and "CCPHYLO_TORCH_ENGINE=device64" in note.getvalue()
-    nwk, t, ran = dispatch(fflat, n, "upgma", "d", "device64")
+    nwk, t, ran = dispatch(fflat, nr, "upgma", "d", "device64")
     assert ran == "hclust/float64", ran
-    assert nwk.count(b"iso") == n and nwk.count(b",") == n - 1
+    assert nwk.count(b"iso") == nr and nwk.count(b",") == nr - 1
     out["upgma_non_integer"] = {
-        "engine": ran, "s": t, "joins_per_s": joins / t,
+        "n": nr, "engine": ran, "s": t, "joins_per_s": (nr - 2) / t,
         "host_exact_s": t_host, "equals_host": nwk == nwk_host}
-    log(f"non-integer matrix, -m upgma: default route [exact] {t_host:.1f} "
-        f"s with its note; device64 [{ran}] {t:.3f} s, {joins / t:,.1f} "
-        f"joins/s, Newick equals the host engine's: {nwk == nwk_host}")
+    log(f"non-integer matrix n={nr}, -m upgma: default route [exact] "
+        f"{t_host:.1f} s with its note; device64 [{ran}] {t:.3f} s, "
+        f"{(nr - 2) / t:,.1f} joins/s, Newick equals the host engine's: "
+        f"{nwk == nwk_host}")
 
     # at depth: dnj, float64, batch scan, n = N_DEPTH
     D = torch.from_numpy(te.square_matrix(dflat, nd)).to(dev)
@@ -2453,8 +2713,8 @@ def engines_on_card(dev, g, res, flat, pool):
     # the host exact engine on the same matrices, now that the card's
     # runs are timed (nj and mn take it about a minute each); every
     # Newick of a default route must equal its host twin's bytes
-    futures = {key: early.get(key) or pool.submit(host_tree, fl, n, method,
-                                                  dtype)
+    futures = {key: early.get(key) or pool.submit(host_tree, fl, taxa(fl),
+                                                  method, dtype)
                for key, (fl, method, dtype, *_) in runs.items()}
     mflat = random_flat(dev, g, n, 0, 25, drop=0.12)
     f_miss = {m: pool.submit(host_tree, mflat, n, m)
@@ -2476,10 +2736,17 @@ def engines_on_card(dev, g, res, flat, pool):
         assert nwk.count(b"iso") == n
         missing[method] = (nwk, ran)
     # the kernel's instance with missing cells against the plain loop on
-    # the whole run: no sum is exact, so picks equal and floats within
-    # 1e-12 of max(|x|, 1)
-    held_float(torch.from_numpy(te.square_matrix(mflat, n)).to(dev), n,
-               n - 2, res, f"segment_float_check_missing_{n}", rtol=1e-12)
+    # the first segment of the run: no sum is exact, so picks equal and
+    # floats within 1e-12 of max(|x|, 1)
+    Dm = torch.from_numpy(te.square_matrix(mflat, n)).to(dev)
+    held_float(Dm.clone(), n, segmenting.SEG, res,
+               f"segment_float_check_missing_{n}", rtol=1e-12)
+    held_float(Dm.clone(), n, CHECKED_JOINS, res,
+               f"segment_float_check_missing_{n}_list", rtol=1e-12,
+               flags=list_flags(n))
+    float_breakdown(Dm, n, segmenting.SEG, float_turns_of(n), res,
+                    f"float_breakdown_missing_{n}")
+    del Dm
 
     # how much of float64's exact range the float64 runs above used
     st64, out["exact_range_snp"] = exact_range(flat, n, dev, every=128)
@@ -2542,17 +2809,19 @@ def engines_on_card(dev, g, res, flat, pool):
         log(f"caterpillar -m upgma on the card equals the host exact engine "
             f"({t_host:.1f} s in a worker process)")
     host_depth, t_host_depth = f_depth.result()
-    for key, (_, method, dtype, nwk, t, ran) in runs.items():
+    for key, (fl, method, dtype, nwk, t, ran) in runs.items():
         host, t_host = hosts[key]
+        nk = taxa(fl)
         # a run handed to the host on the default route was timed under
         # device64: its bytes are shown, not promised
         away = handed.get(key)
         assert away or nwk == host, f"-m {key}: Newick differs from the " \
                                     "host exact engine"
-        out[key] = {"engine": ran, "s": t, "joins_per_s": joins / t,
-                    "host_exact_s": t_host, "equals_host": nwk == host,
+        out[key] = {"n": nk, "engine": ran, "s": t,
+                    "joins_per_s": (nk - 2) / t, "host_exact_s": t_host,
+                    "equals_host": nwk == host,
                     "default_route": "exact" if away else ran}
-        log(f"tree n={n} -m {key} [{ran}]: {t:.3f} s, {joins / t:,.1f} "
+        log(f"tree n={nk} -m {key} [{ran}]: {t:.3f} s, {(nk - 2) / t:,.1f} "
             f"joins/s; Newick ({len(nwk)} bytes) equals the host exact "
             f"engine ({t_host:.1f} s in a worker process): {nwk == host}"
             + (f"; the default route hands it to the host: {away}"
@@ -3072,7 +3341,7 @@ def phase_dryrun(dev, res):
 
 
 PHASES = ("kernels", "main_path", "scale", "parity", "streamed", "engines",
-          "sharded", "matdist", "cli", "dryrun", "profile")
+          "sharded", "matdist", "cli", "dryrun", "profile", "float_sizes")
 
 
 def main() -> int:
@@ -3107,8 +3376,10 @@ def main() -> int:
             lambda: phase_sharded(dev, res, shared.get("flat")),
             lambda: phase_matdist(dev, res),
             lambda: phase_cli(res), lambda: phase_dryrun(dev, res),
-            lambda: phase_profile(dev, res))):
-        if name in only or (not only and name != "profile"):
+            lambda: phase_profile(dev, res),
+            lambda: phase_float_sizes(dev, res))):
+        if name in only or (not only and name not in ("profile",
+                                                      "float_sizes")):
             t_phase = time.perf_counter()
             phase()
             res.setdefault("phase_s", {})[name] = \

@@ -14,17 +14,28 @@ dyadic, and JAX's cumsum on the CPU does not add left to right.
 A numpy model of csrc/dnj_segment_float.cu (the CUDA kernel cannot run
 here) runs the kernel's G blocks as generators that stop at every grid
 barrier, the blocks in a random order between barriers and the threads
-of a block in a random order within a phase, with the kernel's chunks
-of cells, its scan buffers by a parity that runs on across joins, its
-sums in the order of its block reductions, and phase C reduced in every
-block.  On complete matrices it equals the plain loop bit for bit
-(every sum of these matrices is exact, so the order of a sum cannot
-matter); with missing cells the picks are equal and the limbs within
-1e-12 of max(|x|, 1).  With one grid barrier taken out it differs from
-the plain loop on some seeded state.  On a caterpillar, where the row
-sums leave float64's exact range, both stop at the same join, and the
-records before it equal the JAX engine's.  The wrapper's argument
-checks refuse what the kernel does not take."""
+of a block in a random order within a phase, with the kernel's chunks of
+cells, its scan buffers by a parity that runs on across joins, its sums
+in the order of its block reductions, and phase C reduced in every
+block. It models both designs of the scan, and every case runs in each:
+the first (block k scans the row of rank k) and the candidate list (a
+list of the join's candidate rows from each block's copy of Q or from
+slices of Q after a barrier, filtered after each pass or refilled from Q
+where it overflowed; each pass's rows split over the blocks into pieces
+by their cells and a cost a piece, the pieces merged after the pass
+barrier), whose invariant (no row at or above the next pass's bound is a
+candidate, every row below it keeps its listed Q) it checks; its list
+holds the kernel's LIST_K G rows unless a case sets another capacity. On
+complete matrices it equals the plain loop bit for bit (every sum of
+these matrices is exact, so the order of a sum cannot matter); with
+missing cells the picks are equal and the limbs within 1e-12 of max(|x|,
+1). With one grid barrier taken out, with a list that keeps the row at
+the bound, a merge that breaks the tie rule, or a list too small taken
+for the whole, it differs from the plain loop (or fails the invariant)
+on some seeded state. On a caterpillar, where the row sums leave
+float64's exact range, both stop at the same join, and the records
+before it equal the JAX engine's. The wrapper's argument checks refuse
+what the kernel does not take."""
 
 import numpy as np
 import pytest
@@ -43,6 +54,11 @@ torch.set_num_threads(1)
 
 JAX_KEYS = ("D", "sD", "N", "Q", "P", "seed", "I", "J", "LI", "LJ")
 THREADS = 256  # threads of a block of dnj_segment_float_kernel
+# the kernel's constants (csrc/dnj_segment_float.cu's kListK and
+# kPieceUnits): the candidate list holds LIST_K G rows, a piece of a row
+# costs PIECE_UNITS units beside its cells; the model takes others too
+LIST_K, PIECE_UNITS = 1, 2048
+DESIGNS = ("stage", "rows", "slices")  # the model's designs of the scan
 NEG = -(1 << 30)  # the binary places of 0: below any bound
 
 
@@ -235,6 +251,10 @@ class _Diverged(Exception):
     """The blocks reached different barriers: the card would hang."""
 
 
+class _Broken(Exception):
+    """An invariant of the kernel's design failed in the model."""
+
+
 def _places(x, mant):
     """b with x = odd * 2**-b: the binary places x needs; NEG for 0."""
     if x == 0:
@@ -297,11 +317,164 @@ def _ltd_row(f):
     return r
 
 
-def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
+def _piece(D, sD, N, r, c0, c1, f, big):
+    """(min, largest column at it) of row r's Q values over its cells
+    [c0, c1); (big, -1) where none is present."""
+    d = D[r, c0:c1]
+    ok = d >= 0
+    if not ok.any():
+        return big, -1
+    coef = ((N[r] + N[c0:c1] - 4) >> 1).astype(f)
+    q = np.where(ok, (coef * d - sD[r]) - sD[c0:c1], big)
+    mn = q[ok].min()
+    return mn, c0 + int(np.flatnonzero(ok & (q == mn)).max())
+
+
+def _scan_rows(k, S, sh, G, m_t, minv, pi, pj, cnt, drop):
+    """The first design's passes (kRows): every block selects the row of
+    rank k from Q and scans it whole.  Yields at the pass barrier;
+    returns the pair and the running minimum."""
+    D, sD, N, Q, P = S["D"], S["sD"], S["N"], S["Q"], S["P"]
+    f = D.dtype.type
+    big = np.finfo(f).max
+    hi = m_t
+    while True:
+        h = max(hi, 1)
+        rows = np.arange(1, h)[Q[1:h] < minv][::-1]
+        total = len(rows)
+        if total == 0:
+            break
+        valid = k < total
+        r = int(rows[k]) if valid else -1
+        qr = Q[r] if valid else big
+        rmin, rarg = _row_min(D, sD, N, r, f, big, m_t) if valid \
+            else (big, -1)
+        par = cnt["par"]
+        bv, bx, brow = sh["scan_v"][par], sh["scan_x"][par], \
+            sh["scan_r"][par]
+        bv[k], bx[k], brow[k] = rmin, rarg, r
+        if drop != "pass":
+            yield "pass"
+        cnt["par"] ^= 1
+        before = min([minv] + list(bv[:k]))
+        best, bi, bj = big, -1, 0
+        for b in range(G):
+            if bv[b] < best or (bv[b] == best and brow[b] > bi):
+                best, bi, bj = bv[b], int(brow[b]), int(bx[b])
+        if valid and qr < before:
+            Q[r], P[r] = rmin, rarg
+            cnt["nreval"] += 1
+        if best < minv:
+            minv, pi, pj = best, bi, bj
+        cnt["npass"] += 1
+        if total <= G:
+            break
+        hi = int(brow[G - 1])
+    return minv, pi, pj
+
+
+def _scan_list(k, S, sh, G, m_t, minv, pi, pj, cnt, drop, design, cap,
+               pw, mutant):
+    """The default design's passes: the join's candidate list (from the
+    block's copy of Q, or from every block's slice of Q after a barrier),
+    each pass's rows split evenly over the blocks into pieces (a row
+    weighs pw units, then one a cell), merged by every block after the
+    pass barrier.  `mutant`: "hi" keeps the
+    row at the next pass's bound in the list, "tie" merges a row's
+    pieces first-wins, "overflow" takes a truncated list for the whole.
+    Yields at the barriers; returns the pair and the running minimum."""
+    D, sD, N, Q, P = S["D"], S["sD"], S["N"], S["Q"], S["P"]
+    f = D.dtype.type
+    big = np.finfo(f).max
+    src = sh["Qs"][k] if design == "stage" else Q
+
+    def candidates(q, hi):
+        return [(r, q[r]) for r in range(hi - 1, 0, -1) if q[r] < minv]
+
+    if design == "slices":
+        top = m_t - 1
+        sl = -(-top // G)
+        ktop = top - k * sl
+        sh["slices"][k] = [(r, Q[r]) for r in range(ktop, max(ktop - sl, 0),
+                                                     -1) if Q[r] < minv]
+        if drop != "list":
+            yield "list"
+        full = [e for b in range(G) for e in sh["slices"][b]]
+    else:
+        full = candidates(src, m_t)
+    total, lst = len(full), full[:cap]
+    over = total > cap and mutant != "overflow"
+    while total:
+        R = min(G, total)
+        rows = [r for r, _ in lst[:R]]
+        cum = [0]
+        for r in rows:
+            cum.append(cum[-1] + pw + r)
+        lo, hk = k * cum[-1] // G, (k + 1) * cum[-1] // G
+        tag, slots = cnt["tag"], sh["pieces"][cnt["par"]]
+        for x in range(R):
+            at = cum[x] + pw  # the unit of the row's cell 0
+            a, b = max(lo, at), min(hk, cum[x + 1])
+            if a < b:
+                v, c = _piece(D, sD, N, rows[x], a - at, b - at, f, big)
+                slots[x + k] = (v, c, rows[x], tag)
+        if drop != "pass":
+            yield "pass"
+        myr = rows[k] if k < R else None
+        bv, brow, bcol, mv, mcol, before = big, -1, 0, big, -1, minv
+        for v, c, r, tg in slots[:R + G - 1]:
+            if tg != tag:
+                continue
+            if v < bv or (v == bv and (r > brow or (r == brow and c > bcol))):
+                bv, brow, bcol = v, r, c
+            if r == myr:
+                if v < mv or (v == mv and c > mcol and mutant != "tie"):
+                    mv, mcol = v, c
+            elif myr is not None and r > myr:
+                before = min(before, v)
+        if k < R and lst[k][1] < before:
+            Q[myr], P[myr] = mv, (mcol if mv != big else m_t - 1)
+            cnt["nreval"] += 1
+        if bv < minv:
+            minv, pi, pj = bv, brow, bcol
+        cnt["npass"] += 1
+        cnt["tag"] += 1
+        cnt["par"] ^= 1
+        if total <= G:
+            break
+        hi = rows[G - 1]
+        # the kernel's argument that the list needs no row at or above hi
+        # and no new Q: the row of rank k, written back or not, is no
+        # candidate of the next pass, nor is a row at or above hi that the
+        # pass did not scan; every row below hi keeps its listed Q
+        if mutant is None and not (
+                (k >= R or Q[rows[k]] >= minv)
+                and all(Q[r] >= minv for r in range(hi, m_t)
+                        if r not in rows)
+                and all(Q[r] == q for r, q in full if r < hi)):
+            raise _Broken(f"the list's invariant at hi = {hi}, block {k}")
+        if not over:
+            keep = lst[G - 1:] if mutant == "hi" else lst[G:]
+            lst = [(r, q) for r, q in keep if q < minv]
+            total = len(lst)
+        else:  # the list held the first cap only: Q again below hi
+            full = candidates(src, hi)
+            total, lst = len(full), full[:cap]
+            over = total > cap
+            if k == 0:
+                sh["refills"] += 1
+    return minv, pi, pj
+
+
+def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop,
+           design, cap, pw, mutant):
     """The program of block k of dnj_segment_float_kernel on the numpy
     state S (shared by the blocks, as device memory is; sh holds the
-    scratch).  Yields the name of each grid barrier it reaches; `drop`
-    names one to leave out."""
+    scratch and each block's copy of Q), in the design `design` ("rows",
+    "stage" or "slices") with a list of `cap` rows and pieces of `pw`
+    units.  Yields the name of
+    each grid barrier it reaches; `drop` names one to leave out;
+    `mutant` (see `_scan_list`) changes the list's rules."""
     D, sD, N, Q, P = S["D"], S["sD"], S["N"], S["Q"], S["P"]
     f = D.dtype.type
     mant = 52 if f == np.float64 else 23
@@ -315,7 +488,9 @@ def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
     qs = Q[seed]
     nxt = (qs, seed, int(P[seed])) if seed != 0 and qs != big \
         else (big, 0, 0)
-    par = npass = nreval = 0
+    cnt = {"par": 0, "npass": 0, "nreval": 0, "tag": 1}
+    if design == "stage":  # the launch's first copy of Q
+        sh["Qs"][k] = Q.copy()
 
     def threads(lo, hi):
         """The cells of each thread of the chunk [lo, hi), tiles
@@ -332,38 +507,13 @@ def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
         minv, pi, pj = nxt
 
         # ---- the scan's passes
-        hi = m_t
-        while True:
-            h = max(hi, 1)
-            rows = np.arange(1, h)[Q[1:h] < minv][::-1]
-            total = len(rows)
-            if total == 0:
-                break
-            valid = k < total
-            r = int(rows[k]) if valid else -1
-            qr = Q[r] if valid else big
-            rmin, rarg = _row_min(D, sD, N, r, f, big, m_t) if valid \
-                else (big, -1)
-            bv, bx, brow = sh["scan_v"][par], sh["scan_x"][par], \
-                sh["scan_r"][par]
-            bv[k], bx[k], brow[k] = rmin, rarg, r
-            if drop != "pass":
-                yield "pass"
-            par ^= 1
-            before = min([minv] + list(bv[:k]))
-            best, bi, bj = big, -1, 0
-            for b in range(G):
-                if bv[b] < best or (bv[b] == best and brow[b] > bi):
-                    best, bi, bj = bv[b], int(brow[b]), int(bx[b])
-            if valid and qr < before:
-                Q[r], P[r] = rmin, rarg
-                nreval += 1
-            if best < minv:
-                minv, pi, pj = best, bi, bj
-            npass += 1
-            if total <= G:
-                break
-            hi = int(brow[G - 1])
+        if design == "rows":
+            minv, pi, pj = yield from _scan_rows(k, S, sh, G, m_t, minv, pi,
+                                                 pj, cnt, drop)
+        else:
+            minv, pi, pj = yield from _scan_list(k, S, sh, G, m_t, minv, pi,
+                                                 pj, cnt, drop, design, cap,
+                                                 pw, mutant)
 
         i, j = pi, pj
         if i == 0 and j == 0:  # no joinable pair
@@ -373,6 +523,9 @@ def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
             if drop != "nopair":
                 yield "nopair"
             Q[last] = big
+            if design == "stage":  # the next join's copy, patched
+                sh["Qs"][k] = Q.copy()
+                sh["Qs"][k][last] = big
             seed, nxt = 0, (big, 0, 0)
             continue
 
@@ -552,6 +705,8 @@ def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
         sh["red"][k] = [_best(x, big) for x in red]
         if drop != "B":
             yield "B"
+        if design == "stage":  # the next join's copy, patched below
+            Qs = sh["Qs"][k] = Q.copy()
 
         # (C) in every block: the reductions, Q and P of j and i, the seed
         (Qj, xj), (qcj, xcj), (Qi, xi), (qci, xci) = (
@@ -564,6 +719,11 @@ def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
             Q[i], P[i] = Qi, 0 if Qi == big else xi
             mj = xci if xci >= 0 and qci <= Qi else i
         Q[last] = big
+        if design == "stage":
+            Qs[j] = Q[j]
+            if pop:
+                Qs[i] = Q[i]
+            Qs[last] = big
         qmj, qmi = Q[mj], Q[mi]
         if mj == last:
             seed = mi
@@ -574,9 +734,9 @@ def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
         qs = Q[seed]
         nxt = (qs, seed, int(P[seed])) if seed != 0 and qs != big \
             else (big, 0, 0)
-    S["stats"][1] += nreval
+    S["stats"][1] += cnt["nreval"]
     if lead:
-        S["stats"][0] += npass
+        S["stats"][0] += cnt["npass"]
         S["seed"][0] = seed
         if track:
             S["exact"][...] = exact
@@ -584,20 +744,29 @@ def _block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop):
             S["first_inexact"][0] = stop
 
 
-def segment_model(S, t0, t1, m, G, rng, neg_limbs=False, drop=None):
+def segment_model(S, t0, t1, m, G, rng, neg_limbs=False, drop=None,
+                  design="stage", cap=None, pw=PIECE_UNITS, mutant=None):
     """csrc/dnj_segment_float.cu's launch over joins [t0, t1) on the
-    numpy state S, in place: G blocks, each run up to its next grid
-    barrier in a random order of the blocks; raises _Diverged where the
-    blocks reach different barriers."""
+    numpy state S, in place, in the design `design` with a list of
+    `cap` rows (the kernel's LIST_K G if None) and pieces of `pw` units:
+    G blocks, each run up to its next grid barrier in a random order of
+    the blocks; raises _Diverged where the blocks reach different
+    barriers.  Returns the list's refills."""
+    cap = LIST_K * G if cap is None else cap
     f = S["D"].dtype.type
+    big = np.finfo(f).max
     complete = bool((S["D"][:m, :m] >= 0).all())
     sh = {"scan_v": np.zeros((2, G), f), "scan_x": np.zeros((2, G), int),
           "scan_r": np.zeros((2, G), int),
           "part": [(f(0), f(0), NEG, 0)] * G,
-          "red": [[(np.finfo(f).max, -1)] * 4] * G,
+          "red": [[(big, -1)] * 4] * G,
           "oldj": np.zeros(S["D"].shape[0], f),
-          "adv_r": np.zeros(G, int), "adv_c": np.zeros(G, int)}
-    live = [_block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop)
+          "adv_r": np.zeros(G, int), "adv_c": np.zeros(G, int),
+          "pieces": [[(big, -1, -1, 0)] * (2 * G) for _ in range(2)],
+          "slices": [[] for _ in range(G)], "Qs": [None] * G,
+          "refills": 0}
+    live = [_block(k, S, sh, t0, t1, m, G, neg_limbs, complete, rng, drop,
+                   design, cap, pw, mutant)
             for k in range(G)]
     while live:
         reached, nxt = set(), []
@@ -610,6 +779,7 @@ def segment_model(S, t0, t1, m, G, rng, neg_limbs=False, drop=None):
         if len(reached) > 1:
             raise _Diverged(reached)
         live = nxt
+    return sh["refills"]
 
 
 def model_state(st):
@@ -637,59 +807,79 @@ def assert_model_equals_plain(S, st, msg, rtol=0.0):
 
 
 def run_both(flat, n, G, seed, monkeypatch, dtype=torch.float64,
-             neg_limbs=False, exact_sums=False, rtol=0.0):
-    """The model and the plain loop (batch K = G, so their pass counts
-    agree) over random segments of one run, compared at every
-    boundary."""
+             neg_limbs=False, exact_sums=False, rtol=0.0, design="stage",
+             cap=None, pw=PIECE_UNITS):
+    """The model (in `design`, with a list of `cap` rows, the kernel's
+    if None, and pieces of `pw` units) and the plain loop (batch K = G,
+    so their pass counts agree) over random segments of one run,
+    compared at every boundary.  Returns both states; the model's
+    refills of the list are in run_both.refills."""
     monkeypatch.setattr(te, "KBATCH", G)
     rng = np.random.default_rng(seed)
     st = new_state(flat, n, dtype, exact_sums)
     S = model_state(st)
-    t0 = 0
+    t0, refills = 0, 0
     for t1 in _cuts(np.random.RandomState(seed), n):
-        segment_model(S, t0, t1, n, G, rng, neg_limbs)
+        refills += segment_model(S, t0, t1, n, G, rng, neg_limbs,
+                                 design=design, cap=cap, pw=pw)
         run_plain(st, t0, t1, n, neg_limbs)
         assert_model_equals_plain(S, st, f"after [{t0}, {t1})", rtol)
         if int(st["first_inexact"]) >= 0:
             break
         t0 = t1
+    run_both.refills = refills
     return S, st
 
 
-@pytest.mark.parametrize("case,G", [("snp", 5), ("ties", 2), ("ties", 24)])
-def test_kernel_model_matches_plain(case, G, monkeypatch):
+def _designs(*cases):
+    """`cases` (tuples of parameters) in each of DESIGNS, the design
+    first; the default design's ids are the cases' own."""
+    return [pytest.param(d, *c, id="-".join(
+        [*map(str, c), *([d] if d != "stage" else [])]))
+        for c in cases for d in DESIGNS]
+
+
+@pytest.mark.parametrize("design,case,G", _designs(("snp", 5), ("ties", 2),
+                                                   ("ties", 24)))
+def test_kernel_model_matches_plain(design, case, G, monkeypatch):
     """The kernel's decomposition on complete integer matrices equals the
     plain loop bit for bit at every boundary, whatever order the blocks
-    and threads run in."""
+    and threads run in, in each design (the list the kernel's, LIST_K G
+    rows, so it overflows and is topped up)."""
     flat, n = CASES[case]()
     flat, n = flat[:80 * 79 // 2], 80  # the first 80 taxa
-    S, st = run_both(flat, n, G, G, monkeypatch)
+    S, st = run_both(flat, n, G, G, monkeypatch, design=design)
     assert int(st["stats"][0]) > 0 and int(st["stats"][1]) > 0
+    assert design == "rows" or G == 24 or run_both.refills > 0
 
 
-def test_kernel_model_float32_and_negative_limbs(monkeypatch):
+@pytest.mark.parametrize("design", DESIGNS)
+def test_kernel_model_float32_and_negative_limbs(design, monkeypatch):
     """float32 state (cells below 20, sums within 24 bits) with negative
     limbs kept."""
     flat = np.minimum(int_matrix(80, 5, 0, 40), 20.0)
     S, _ = run_both(flat, 80, 7, 3, monkeypatch, dtype=torch.float32,
-                    neg_limbs=True)
+                    neg_limbs=True, design=design)
     assert min(S["LI"][:78].min(), S["LJ"][:78].min()) < 0
 
 
-def test_kernel_model_with_missing_cells(monkeypatch):
+@pytest.mark.parametrize("design", DESIGNS)
+def test_kernel_model_with_missing_cells(design, monkeypatch):
     """The instance with missing cells (walker slots, garbage reads):
     picks, N and P equal, sums and limbs within 1e-12 of max(|x|, 1);
     the run meets one-sided updates on both sides of j."""
     flat = int_matrix(90, 31, 1, 60, drop=0.12)
-    run_both(flat, 90, 5, 11, monkeypatch, rtol=1e-12)
+    run_both(flat, 90, 5, 11, monkeypatch, rtol=1e-12, design=design)
 
 
-def test_caterpillar_stops_at_the_same_join(monkeypatch, n=64):
+@pytest.mark.parametrize("design", DESIGNS)
+def test_caterpillar_stops_at_the_same_join(design, monkeypatch, n=64):
     """With the exact range tracked, the model and the plain loop stop at
     the same join of a caterpillar (its cells reach 52 fractional bits);
     their records before it equal the JAX engine's."""
     flat = caterpillar(n)
-    S, st = run_both(flat, n, 5, 2, monkeypatch, exact_sums=True)
+    S, st = run_both(flat, n, 5, 2, monkeypatch, exact_sums=True,
+                     design=design)
     stop = int(st["first_inexact"])
     assert 0 < stop < n - 2 and int(S["first_inexact"][0]) == stop
     assert not bool(st["exact"])
@@ -708,30 +898,77 @@ def test_caterpillar_stops_at_the_same_join(monkeypatch, n=64):
                                       err_msg=k)
 
 
-@pytest.mark.parametrize("fault", ["pass", "A", "B", "A0"])
-def test_kernel_model_sees_a_missing_barrier(fault, monkeypatch):
-    """Without one of the kernel's grid barriers the model differs from
-    the plain loop (or its blocks reach different barriers, where the
-    card would hang) on at least one of a few seeded states."""
-    monkeypatch.setattr(te, "KBATCH", 4)
+@pytest.mark.parametrize("design,case,G,cap,pw", [
+    ("slices", "snp", 5, 2048, 0), ("slices", "ties", 3, 2048, 16),
+    ("stage", "ties", 4, 4, 0), ("slices", "ties", 4, 6, 2048),
+    ("stage", "snp", 7, 2048, 5)])
+def test_kernel_model_designs_match_plain(design, case, G, cap, pw,
+                                          monkeypatch):
+    """The candidate-list designs equal the plain loop bit for bit on
+    complete integer matrices with other values of the kernel's
+    constants (which chip_smoke.py times in turns): lists that hold
+    every candidate (no top-up) or very few (refilled from Q after each
+    pass, with the copy of Q in shared memory or from slices), and the
+    pass's rows split by their cells alone (pw = 0) or with another
+    cost a piece."""
+    flat, n = CASES[case]()
+    flat, n = flat[:80 * 79 // 2], 80
+    run_both(flat, n, G, G + 1, monkeypatch, design=design, cap=cap, pw=pw)
+    assert (run_both.refills > 0) == (cap < 2048)
+
+
+def _model_differs(monkeypatch, G, **kw):
+    """Whether the model (`segment_model`'s keywords `kw`) differs from
+    the plain loop, its blocks reach different barriers or an invariant
+    of the design fails, on at least one of a few seeded states of a
+    40-taxon run."""
+    monkeypatch.setattr(te, "KBATCH", G)
     rng = np.random.default_rng(17)
     for case in range(6):
         flat = int_matrix(40, 60 + case, 0, 25,
-                          drop=0.15 if fault == "A0" else 0.0)
+                          drop=0.15 if kw.get("drop") == "A0" else 0.0)
         st = new_state(flat, 40)
         t0 = int(rng.integers(0, 20))
         run_plain(st, 0, t0, 40)
         S = model_state(st)
         try:
-            segment_model(S, t0, 38, 40, 4, rng, drop=fault)
-        except _Diverged:
-            return
+            segment_model(S, t0, 38, 40, G, rng, **kw)
+        except (_Diverged, _Broken):
+            return True
         run_plain(st, t0, 38, 40)
         if any(not np.array_equal(np.asarray(S[k]), st[k].numpy())
                for k in sf.STATE_KEYS if st[k] is not None):
-            return
-    pytest.fail(f"the model without barrier {fault} matched the plain "
-                "loop on every state")
+            return True
+    return False
+
+
+@pytest.mark.parametrize("design,fault", _designs(
+    ("pass",), ("A",), ("B",), ("A0",))
+    + [pytest.param("slices", "list", id="list")])
+def test_kernel_model_sees_a_missing_barrier(design, fault, monkeypatch):
+    """Without one of the kernel's grid barriers the model differs from
+    the plain loop (or its blocks reach different barriers, where the
+    card would hang) on at least one of a few seeded states, in each
+    design; "list", the barrier after the candidate list's slices, in
+    that design."""
+    assert _model_differs(monkeypatch, 4, drop=fault, design=design), \
+        f"the model without barrier {fault} matched the plain loop on " \
+        "every state"
+
+
+@pytest.mark.parametrize("mutant,cap", [("hi", 2048), ("tie", 2048),
+                                        ("overflow", 4)])
+def test_kernel_model_sees_a_broken_list(mutant, cap, monkeypatch):
+    """The default design's rules hold: a list that keeps the row at the
+    next pass's bound ("hi"), a merge of a row's pieces that keeps the
+    first column at a tie instead of the last ("tie"), and a list too
+    small for a join's candidates taken for the whole ("overflow") each
+    make the model differ from the plain loop on some seeded state."""
+    kw = dict(cap=cap, pw=0)  # pw = 0: rows split over blocks
+    assert not _model_differs(monkeypatch, 4, **kw)  # intact: equal
+    assert _model_differs(monkeypatch, 4, mutant=mutant, **kw), \
+        f"the model with mutant {mutant} matched the plain loop on every " \
+        "state"
 
 
 # ---------------------------------------------------------------------
@@ -779,6 +1016,40 @@ def test_wrapper_checks_cuda_arguments(bad, match):
     ok["exact"] = torch.ones((), dtype=torch.bool)
     sf.check_segment_float_args(*(ok[k] for k in sf.STATE_KEYS), K=132,
                                 max_blocks=132)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(sD=torch.zeros(65, dtype=torch.float64)[1:]), "16-byte aligned"),
+    (dict(K=257, max_blocks=300), "K = 257"),
+    (dict(D=torch.zeros(64 * 64 + 1, dtype=torch.float64)[1:].view(64, 64)),
+     "16-byte aligned"),
+    (dict(Q=torch.zeros(65, dtype=torch.float64)[1:]), "16-byte aligned")])
+def test_wrapper_checks_list_and_alignment(bad, match):
+    """The candidate-list design's checks: K <= 256 (a block scans one
+    entry of the list a thread), and the tensors its vector loads and
+    its copy of Q read are 16-byte aligned."""
+    a = _args()
+    lim = dict(K=128, max_blocks=132, rows=False)
+    for k, v in bad.items():
+        (lim if k in lim else a)[k] = v
+    with pytest.raises(ValueError, match=match):
+        sf.check_segment_float_args(*(a[k] for k in sf.STATE_KEYS), **lim)
+
+
+def test_default_design_by_size():
+    """The design a run takes by default, from the two timed in turns:
+    the first (ROWS) below ROWS_BELOW taxa, else the candidate list,
+    from a copy of Q in shared memory up to STAGE_Q_ROWS rows; flags
+    given explicitly are kept."""
+    assert sf.default_design(2048, 2048) == sf.ROWS
+    assert sf.default_design(4096, sf.ROWS_BELOW - 1) == sf.ROWS
+    assert sf.default_design(4096, 4096) == sf.STAGE_Q
+    assert sf.default_design(sf.STAGE_Q_ROWS, sf.STAGE_Q_ROWS) == sf.STAGE_Q
+    assert sf.default_design(32768, 32768) == 0
+    D = torch.zeros((10, 10), dtype=torch.float64)
+    assert sf.prepare_flags(D, 10) == sf.ROWS | sf.COMPLETE
+    assert sf.prepare_flags(D.float(), 10, sf.STAGE_Q) \
+        == sf.STAGE_Q | sf.COMPLETE | sf.FLOAT32
 
 
 def test_instance_flags():
