@@ -848,8 +848,15 @@ def _batch_shared(seqs, idxs, shared_inc):
 
     CCPHYLO_TORCH_DIST_CKPT=<dir> computes the fill tile-by-tile on the
     host with each finished tile persisted; a restarted run recomputes
-    only missing tiles (utils/checkpoint.py)."""
-    S = np.stack([seqs[i] for i in idxs])
+    only missing tiles (utils/checkpoint.py).
+
+    Its spans (utils/timing.py), in order: dist/stack (the samples' u64
+    words in one array), and on the device dist/convert (to u32 words
+    and pair masks), dist/upload, dist/kernels (`snp_matrix`: the
+    expansion and Gram launches and its host read of the mask) and
+    dist/copy_back (the wait for the last kernel and the counts' copy)."""
+    with timing.phase("dist/stack"):
+        S = np.stack([seqs[i] for i in idxs])
     ck_dir = os.environ.get("CCPHYLO_TORCH_DIST_CKPT")
     if ck_dir:
         from ..utils.checkpoint import BlockCheckpoint, fingerprint_arrays
@@ -859,21 +866,33 @@ def _batch_shared(seqs, idxs, shared_inc):
                        snp.cross_block(S[si], S[sj], shared_inc))
     if _use_device():
         dev = device()
-        s32 = u32_tensor(u64_to_u32(S), dev)
-        pm = u32_tensor(inc32_to_pairmask(shared_inc), dev)
-        return snp_matrix(s32, pm).cpu().numpy()
+        with timing.phase("dist/convert"):
+            s32, pm = u64_to_u32(S), inc32_to_pairmask(shared_inc)
+        with timing.phase("dist/upload"):
+            s32, pm = u32_tensor(s32, dev), u32_tensor(pm, dev)
+        with timing.phase("dist/kernels"):
+            C = snp_matrix(s32, pm)
+        with timing.phase("dist/copy_back"):
+            return C.cpu().numpy()
     return snp.pairwise_shared(S, shared_inc)
 
 
 def _batch_pairwise(seqs, includes, idxs):
-    """All-pairs (dist, shared) with per-sample masks (proxi == 0)."""
-    S = np.stack([seqs[i] for i in idxs])
-    I = np.stack([includes[i] for i in idxs])
+    """All-pairs (dist, shared) with per-sample masks (proxi == 0); the
+    spans of `_batch_shared`."""
+    with timing.phase("dist/stack"):
+        S = np.stack([seqs[i] for i in idxs])
+        I = np.stack([includes[i] for i in idxs])
     if _use_device():
         dev = device()
-        D, N = snp_matrix_pairwise(u32_tensor(u64_to_u32(S), dev),
-                                   u32_tensor(inc32_to_pairmask(I), dev))
-        return D.cpu().numpy(), N.cpu().numpy()
+        with timing.phase("dist/convert"):
+            s32, pm = u64_to_u32(S), inc32_to_pairmask(I)
+        with timing.phase("dist/upload"):
+            s32, pm = u32_tensor(s32, dev), u32_tensor(pm, dev)
+        with timing.phase("dist/kernels"):
+            D, N = snp_matrix_pairwise(s32, pm)
+        with timing.phase("dist/copy_back"):
+            return D.cpu().numpy(), N.cpu().numpy()
     return snp.pairwise_masked(S, I)
 
 

@@ -328,7 +328,8 @@ def _dispatch_build(flat, n, names, method, flag, precision, dtype,
     (torch_engine.track_sums): a run whose row sums leave it is handed
     to the host exact engine, which builds the tree from the loaded
     matrix, with one stderr line."""
-    engine, store, prec, note = _route(flat, method, dtype, bytescale)
+    with timing.phase("tree/route"):
+        engine, store, prec, note = _route(flat, method, dtype, bytescale)
     sys.stderr.write(note)
     _dispatch_build.last_engine = _engine_name(engine, store, prec)
     if engine in ("exact", "packed", "sharded"):

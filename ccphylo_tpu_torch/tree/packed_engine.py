@@ -48,6 +48,7 @@ from ..ops.scan import dnj_scan, dnj_scan_passes, dnj_scan_plain, \
 from ..ops.segment import dnj_segment, dnj_segment_plain, \
     dnj_segment_prepare
 from ..ops.select import IBIG
+from ..utils import timing
 from ..utils.torchconfig import device as default_device
 from .segmenting import run_segmented
 from .torch_engine import _host, _records_to_newick
@@ -246,28 +247,29 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
     dev = words.device
     ckpt_path, ckpt_every = _ckpt_config()
     st, start = None, 0
-    if ckpt_path and os.path.exists(ckpt_path):
-        st, start = _ckpt_load(ckpt_path, n, m, kbatch, dev)
-    if st is None:
-        sD2, Q, P, seed = _packed_init(words, m)
-        z = torch.zeros(n, dtype=torch.int32, device=dev)
-        st = {"words": words, "sD2": sD2, "Q": Q, "P": P, "seed": seed,
-              "I": z, "J": z.clone(), "DIJ2": z.clone(), "SDI2": z.clone(),
-              "SDJ2": z.clone(),
-              "stats": torch.zeros(4, dtype=torch.int32, device=dev)}
-        start = 0
-    scan_fn, body_fn = SCANS[scan], BODIES.get(body)
-    seg_fn = SEGMENTS[body] if scan == "segment" else None
-    if dev.type == "cuda":  # arguments checked, buffers made, once a run
-        if seg_fn in _PREPARE:
-            seg_fn = functools.partial(seg_fn, prep=_PREPARE[seg_fn](
-                *(st[k] for k in _STATE_KEYS), kbatch))
-        if scan_fn in _PREPARE:
-            scan_fn = functools.partial(scan_fn, prep=_PREPARE[scan_fn](
-                *(st[k] for k in _STATE_KEYS[:5]), kbatch))
-        if body_fn in _PREPARE and seg_fn is None:
-            body_fn = functools.partial(body_fn, prep=_PREPARE[body_fn](
-                *(st[k] for k in _STATE_KEYS)))
+    with timing.phase("tree/init"):
+        if ckpt_path and os.path.exists(ckpt_path):
+            st, start = _ckpt_load(ckpt_path, n, m, kbatch, dev)
+        if st is None:
+            sD2, Q, P, seed = _packed_init(words, m)
+            z = torch.zeros(n, dtype=torch.int32, device=dev)
+            st = {"words": words, "sD2": sD2, "Q": Q, "P": P, "seed": seed,
+                  "I": z, "J": z.clone(), "DIJ2": z.clone(),
+                  "SDI2": z.clone(), "SDJ2": z.clone(),
+                  "stats": torch.zeros(4, dtype=torch.int32, device=dev)}
+            start = 0
+        scan_fn, body_fn = SCANS[scan], BODIES.get(body)
+        seg_fn = SEGMENTS[body] if scan == "segment" else None
+        if dev.type == "cuda":  # arguments checked, buffers made, once a run
+            if seg_fn in _PREPARE:
+                seg_fn = functools.partial(seg_fn, prep=_PREPARE[seg_fn](
+                    *(st[k] for k in _STATE_KEYS), kbatch))
+            if scan_fn in _PREPARE:
+                scan_fn = functools.partial(scan_fn, prep=_PREPARE[scan_fn](
+                    *(st[k] for k in _STATE_KEYS[:5]), kbatch))
+            if body_fn in _PREPARE and seg_fn is None:
+                body_fn = functools.partial(body_fn, prep=_PREPARE[body_fn](
+                    *(st[k] for k in _STATE_KEYS)))
 
     def seg_call(st, t0, t1):
         if seg_fn is not None:
@@ -292,6 +294,7 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
     words = st["words"]
     d_last2 = 2 * words.view(torch.uint8)[1, 0].to(torch.int32)
     dnj_joins_packed.last_stats = st["stats"].cpu().numpy()
+    timing.count("tree/scan_passes", int(dnj_joins_packed.last_stats[0]))
     if ckpt_path and os.path.exists(ckpt_path):
         try:
             os.remove(ckpt_path)  # completed: snapshot no longer valid
@@ -333,31 +336,31 @@ def build_tree_packed(flat64: np.ndarray, n: int, names: list,
 
     Loads quantize like loadPhy -b (round 0.5, phy.c:473-475); complete
     matrices only (quantized storage cannot hold missing cells).
-    `build_tree_packed.last_times` holds the host clock's seconds of the
-    last call's steps: "quantize" (the u8 matrix and its upload),
-    "engine" (`dnj_joins_packed`, which ends with a host read),
-    "limbs" (`limbs_host`, the records' copy to the host included) and
-    "newick"."""
+    Its spans (utils/timing.py) are its steps: tree/quantize (the u8
+    matrix and its upload), tree/engine (`dnj_joins_packed`: tree/init,
+    a tree/segment per segment, then a host read), tree/limbs
+    (`limbs_host`, the records' copy to the host included) and
+    tree/newick; `build_tree_packed.last_times` holds each one's host
+    clock seconds of the last call under "quantize", "engine", "limbs"
+    and "newick"."""
     dev = default_device() if device is None else torch.device(device)
     times = build_tree_packed.last_times = {}
-    t = time.perf_counter()
-    npad = pad_packed(n)
-    Dq = np.zeros((npad, npad), np.uint8)
-    iu = np.tril_indices(n, -1)
-    qv = np.floor(np.asarray(flat64, np.float64) * bytescale + 0.5)
-    qv = np.clip(qv, 0, 255).astype(np.uint8)
-    Dq[(iu[0], iu[1])] = qv
-    Dq[(iu[1], iu[0])] = qv
-    words = pack_words(Dq, dev)
-    times["quantize"], t = time.perf_counter() - t, time.perf_counter()
-    I, J, DIJ2, SDI2, SDJ2, d_last2, _ = dnj_joins_packed(
-        words, n, scan=scan, body=body)
-    times["engine"], t = time.perf_counter() - t, time.perf_counter()
-    LI, LJ = limbs_host(I, J, DIJ2, SDI2, SDJ2, n, bytescale,
-                        neg_limbs=bool(flag & 2))
-    d_last = float(int(d_last2)) / (2.0 * float(bytescale))
-    times["limbs"], t = time.perf_counter() - t, time.perf_counter()
-    nwk = _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
-                             precision)
-    times["newick"] = time.perf_counter() - t
-    return nwk
+    with timing.phase("tree/quantize", into=times):
+        npad = pad_packed(n)
+        Dq = np.zeros((npad, npad), np.uint8)
+        iu = np.tril_indices(n, -1)
+        qv = np.floor(np.asarray(flat64, np.float64) * bytescale + 0.5)
+        qv = np.clip(qv, 0, 255).astype(np.uint8)
+        Dq[(iu[0], iu[1])] = qv
+        Dq[(iu[1], iu[0])] = qv
+        words = pack_words(Dq, dev)
+    with timing.phase("tree/engine", into=times):
+        I, J, DIJ2, SDI2, SDJ2, d_last2, _ = dnj_joins_packed(
+            words, n, scan=scan, body=body)
+    with timing.phase("tree/limbs", into=times):
+        LI, LJ = limbs_host(I, J, DIJ2, SDI2, SDJ2, n, bytescale,
+                            neg_limbs=bool(flag & 2))
+        d_last = float(int(d_last2)) / (2.0 * float(bytescale))
+    with timing.phase("tree/newick", into=times):
+        return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
+                                  precision)

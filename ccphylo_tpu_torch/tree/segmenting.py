@@ -4,14 +4,18 @@ tree/segmenting.py).
 The join loop runs in segments of SEG joins.  Each segment is fenced
 (``torch.cuda.synchronize()`` when the state lives on a card), so a
 checkpoint or instrumentation hook sees a finished state and a fault
-inside the segment surfaces at its end.  The reference sizes its
-segments to a wall-clock target to stay under a TPU runtime's execution
-watchdog; a CUDA card has none, so the size is fixed here.
+inside the segment surfaces at its end.  Each segment, its launch and
+its fence, is one ``tree/segment`` span (utils/timing.py).  The
+reference sizes its segments to a wall-clock target to stay under a TPU
+runtime's execution watchdog; a CUDA card has none, so the size is fixed
+here.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils import timing
 
 SEG = 1024  # joins per fenced segment
 
@@ -33,9 +37,10 @@ def run_segmented(seg_call, state, total: int, hooks=None,
     done = start
     while done < total:
         k = min(SEG, total - done)
-        state = seg_call(state, done, done + k)
-        if cuda:
-            torch.cuda.synchronize()
+        with timing.phase("tree/segment"):
+            state = seg_call(state, done, done + k)
+            if cuda:
+                torch.cuda.synchronize()
         done += k
         if hooks is not None:
             hooks(state, done, total)

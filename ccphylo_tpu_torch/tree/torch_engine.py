@@ -62,6 +62,7 @@ import torch
 
 from ..ops import segment_float
 from ..ops.select import topk_mask_indices
+from ..utils import timing
 from ..utils.torchconfig import device as default_device
 from .newick_build import (byteshift_fix, form_last_bi_node,
                            form_last_node, form_node)
@@ -611,7 +612,8 @@ def dnj_joins(D, m: int, neg_limbs=False, scan="batch", exact_sums=False):
     (see `_batch_scan`), and batches are taken in the C's descending row
     order.  scan="seq" runs the plain loop with minQpair's sequential
     descending row revalidation, cycle for cycle.  The records reach the
-    host once, at the end.
+    host once, at the end.  While tracing is on (utils/timing.py) the
+    batch scan's passes are added to the counter `tree/scan_passes`.
 
     exact_sums: track the exact range (`track_sums`) and raise
     InexactSums at the first join whose picks or limbs could read a row
@@ -620,22 +622,25 @@ def dnj_joins(D, m: int, neg_limbs=False, scan="batch", exact_sums=False):
     if scan not in ("seq", "batch"):
         raise ValueError(f"scan must be seq or batch, not {scan!r}")
     m = int(m)
-    st = _new_state(D, m)
-    if exact_sums:
-        track_sums(st, m)
+    with timing.phase("tree/init"):
+        st = _new_state(D, m)
+        if exact_sums:
+            track_sums(st, m)
+        prep = segment_float.dnj_segment_float_prepare(
+            *(st.get(k) for k in segment_float.STATE_KEYS), m) \
+            if scan == "batch" and D.is_cuda and m > 2 else None
     if scan == "seq":
         def seg(st, t0, t1):
             return _dnj_segment(st, t0, t1, m, neg_limbs, "seq")
     else:
-        prep = segment_float.dnj_segment_float_prepare(
-            *(st.get(k) for k in segment_float.STATE_KEYS), m) \
-            if D.is_cuda and m > 2 else None
-
         def seg(st, t0, t1):
             return _run_segment(st, t0, t1, m, neg_limbs, prep)
     run_segmented(seg, st, max(m - 2, 0))
-    return (_host(st["I"]), _host(st["J"]), _host(st["LI"]),
-            _host(st["LJ"]), float(D[1, 0]), D)
+    with timing.phase("tree/records"):
+        if scan == "batch" and timing.enabled():
+            timing.count("tree/scan_passes", int(st["stats"][0]))
+        return (_host(st["I"]), _host(st["J"]), _host(st["LI"]),
+                _host(st["LJ"]), float(D[1, 0]), D)
 
 
 # ---------------------------------------------------------------------
@@ -816,20 +821,22 @@ def dnj_joins_q(Dq, m: int, bytescale: float, neg_limbs=False,
     m = int(m)
     n = Dq.shape[0]
     bytescale = float(bytescale)
-    sD, Q, P, seed = _dnj_init_q(Dq, m, bytescale, compute_dtype)
-    st = {"Dq": Dq, "sD": sD, "Q": Q, "P": P, "seed": seed,
-          "idx": torch.arange(n, device=Dq.device),
-          **_records(n, compute_dtype)}
-    if exact_sums:
-        inv = _inv(bytescale, compute_dtype)
-        track_sums(st, m, lambda r0, r1: _deq(Dq[r0:r1, :m], compute_dtype,
-                                              inv))
+    with timing.phase("tree/init"):
+        sD, Q, P, seed = _dnj_init_q(Dq, m, bytescale, compute_dtype)
+        st = {"Dq": Dq, "sD": sD, "Q": Q, "P": P, "seed": seed,
+              "idx": torch.arange(n, device=Dq.device),
+              **_records(n, compute_dtype)}
+        if exact_sums:
+            inv = _inv(bytescale, compute_dtype)
+            track_sums(st, m, lambda r0, r1: _deq(Dq[r0:r1, :m],
+                                                  compute_dtype, inv))
     run_segmented(
         lambda st, t0, t1: _dnj_segment_q(st, t0, t1, m, bytescale,
                                           neg_limbs),
         st, max(m - 2, 0))
-    d_last = float(_deq(Dq[1, 0], compute_dtype,
-                        _inv(bytescale, compute_dtype)))
+    with timing.phase("tree/records"):
+        d_last = float(_deq(Dq[1, 0], compute_dtype,
+                            _inv(bytescale, compute_dtype)))
     return st["I"], st["J"], st["LI"], st["LJ"], d_last, Dq
 
 
@@ -920,27 +927,46 @@ def build_tree_q(flat64: np.ndarray, n: int, names: list,
     Newick bytes (no ';').
 
     Loads quantize like loadPhy -s/-b (round 0.5, phy.c:473-475);
-    requires a complete matrix (no negative cells)."""
+    requires a complete matrix (no negative cells).  Spans (see
+    `build_tree_float`): tree/quantize, tree/square, tree/upload,
+    tree/engine, tree/newick."""
     dev = default_device() if device is None else torch.device(device)
     npdt = {"u16": np.uint16, "u8": np.uint8}[store]
-    qv = np.floor(np.asarray(flat64, np.float64) * bytescale + 0.5)
-    qv = np.clip(qv, 0, np.iinfo(npdt).max)
-    Dq = quant_cells(square_matrix(qv, n, 0.0).astype(npdt)).to(dev)
-    I, J, LI, LJ, d_last, _ = dnj_joins_q(
-        Dq, n, bytescale, neg_limbs=bool(flag & 2),
-        compute_dtype=compute_dtype, exact_sums=exact_sums)
-    return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
-                              precision)
+    with timing.phase("tree/quantize"):
+        qv = np.floor(np.asarray(flat64, np.float64) * bytescale + 0.5)
+        qv = np.clip(qv, 0, np.iinfo(npdt).max)
+    with timing.phase("tree/square"):
+        Dq = square_matrix(qv, n, 0.0).astype(npdt)
+    with timing.phase("tree/upload"):
+        Dq = quant_cells(Dq).to(dev)
+    with timing.phase("tree/engine"):
+        I, J, LI, LJ, d_last, _ = dnj_joins_q(
+            Dq, n, bytescale, neg_limbs=bool(flag & 2),
+            compute_dtype=compute_dtype, exact_sums=exact_sums)
+    with timing.phase("tree/newick"):
+        return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
+                                  precision)
 
 
 def build_tree_float(flat64: np.ndarray, n: int, names: list,
                      flag: int = 0, precision: int = 9,
                      dtype=torch.float32, scan: str = "batch",
                      device=None, exact_sums=False) -> bytes:
-    """Device DNJ over a loaded ltd matrix; Newick bytes (no ';')."""
+    """Device DNJ over a loaded ltd matrix; Newick bytes (no ';').
+
+    Its spans (utils/timing.py), in order: tree/square (the host's
+    square matrix), tree/upload (its copy to the device), tree/engine
+    (`dnj_joins`: tree/init, a tree/segment per segment, tree/records,
+    the records' copy to the host) and tree/newick."""
     dev = default_device() if device is None else torch.device(device)
-    D = torch.from_numpy(square_matrix(flat64, n)).to(dev, dtype)
-    I, J, LI, LJ, d_last, _ = dnj_joins(D, n, neg_limbs=bool(flag & 2),
-                                        scan=scan, exact_sums=exact_sums)
-    return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
-                              precision)
+    with timing.phase("tree/square"):
+        D = square_matrix(flat64, n)
+    with timing.phase("tree/upload"):
+        D = torch.from_numpy(D).to(dev, dtype)
+    with timing.phase("tree/engine"):
+        I, J, LI, LJ, d_last, _ = dnj_joins(
+            D, n, neg_limbs=bool(flag & 2), scan=scan,
+            exact_sums=exact_sums)
+    with timing.phase("tree/newick"):
+        return _records_to_newick(I, J, LI, LJ, d_last, n, names, flag,
+                                  precision)

@@ -759,7 +759,8 @@ def test_subcommand_help_matches_reference(tmp_path, cmd):
 @pytest.mark.parametrize("mode", ["dir", "stderr", "1"])
 def test_profile_trace(kma_dir, tmp_path, mode):
     """CCPHYLO_TORCH_PROFILE=<dir> writes one torch.profiler Chrome trace
-    there and still prints the phase report; stderr and 1 print the
+    there, with the program's spans in it, and still prints the phase
+    report, spans nested in the fill included; stderr and 1 print the
     report only.  The trace's CUDA kernels are checked on the card
     (chip_smoke.py cli)."""
     import json
@@ -771,6 +772,7 @@ def test_profile_trace(kma_dir, tmp_path, mode):
     assert res.stdout == _run("ccphylo_tpu", args, kma_dir).stdout
     assert b"# --- ccphylo_tpu_torch profile ---" in res.stderr
     assert b"# phase dist/pairwise_fill: " in res.stderr
+    assert b"# phase dist/stack: " in res.stderr
     assert b"profiler trace unavailable" not in res.stderr
     if mode != "dir":
         assert not prof.exists()
@@ -781,6 +783,8 @@ def test_profile_trace(kma_dir, tmp_path, mode):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    assert {"dist/pairwise_fill", "dist/stack", "dist/copy_back"} <= {
+        e.get("name") for e in events if e.get("cat") == "user_annotation"}
 
 
 @pytest.fixture(scope="module")
