@@ -222,6 +222,13 @@ def _is_integer(flat) -> bool:
     return np.array_equal(fl, np.floor(fl))
 
 
+def _packed_route(method, dtype) -> bool:
+    """Whether `_route` sends a complete matrix to the packed u8 engine:
+    -m dnj -b with CCPHYLO_TORCH_ENGINE unset or ``packed``.  The loader
+    hands u8 cells exactly there (`form_tree`)."""
+    return _engine() in ("", "packed") and method == "dnj" and dtype == "b"
+
+
 def _route(flat, method, dtype, bytescale):
     """The join engine for this matrix and CCPHYLO_TORCH_ENGINE, as
     (engine, store, precision, note).
@@ -255,7 +262,9 @@ def _route(flat, method, dtype, bytescale):
     (float32 engines of parallel/; its host stand-ins come with a note).
     """
     eng = _engine()
-    complete = not (np.asarray(flat) < 0).any()
+    cells = np.asarray(flat)
+    # u8 cells (the -b loader's) hold no missing cell and are integers
+    complete = cells.dtype == np.uint8 or not (cells < 0).any()
     host = ("exact", "", "", "")
     if eng == "sharded":
         # the reference's routing, in float32 as there; its host
@@ -269,15 +278,14 @@ def _route(flat, method, dtype, bytescale):
             f"# ccphylo_tpu_torch: {why}: CCPHYLO_TORCH_ENGINE=sharded "
             "runs -m dnj, and -m nj / upgma on complete matrices, in "
             "double precision only; using the host engine.\n",)
-    if eng in ("", "packed") and method == "dnj" and dtype == "b" \
-            and complete:
+    if complete and _packed_route(method, dtype):
         return ("packed", "", "", "")
     if eng in ("exact", "packed"):
         return host
     prec = "float32" if eng == "device" else "float64"
     if eng == "" and dtype == "d" \
-            and not (complete and _is_integer(flat)):
-        why = "missing cells" if _is_integer(flat) \
+            and not (complete and _is_integer(cells)):
+        why = "missing cells" if _is_integer(cells) \
             else "non-integer distances"
         return host[:3] + (
             f"# ccphylo_tpu_torch: {why}: the device engines are "
@@ -288,7 +296,7 @@ def _route(flat, method, dtype, bytescale):
         # float-scope guard: for these three the device engine's sD
         # reductions are not bitwise C sequential sums, so non-integer
         # matrices can flip exact ties (tree/hclust_engine.py)
-        if method in ("ff", "hnj", "nj") and not _is_integer(flat):
+        if method in ("ff", "hnj", "nj") and not _is_integer(cells):
             return host[:3] + (
                 "# ccphylo_tpu_torch: non-integer distances with "
                 f"CCPHYLO_TORCH_ENGINE={eng} -m {method}: device engine "
@@ -324,12 +332,23 @@ def _dispatch_build(flat, n, names, method, flag, precision, dtype,
     """Build the tree on the engine `_route` chooses; its name (see
     `_engine_name`) is left in `_dispatch_build.last_engine`.
 
+    `flat` is the loaded lower triangle: float64 distances, or on the
+    packed route the -b loader's uint8 cells (ByteScale applied,
+    `PhylipStream.load(u8_scale=)`), which no other route takes.  The
+    counter tree/host_cell_bytes adds the bytes it holds.
+
     On the default route the float64 engines track their exact range
     (torch_engine.track_sums): a run whose row sums leave it is handed
     to the host exact engine, which builds the tree from the loaded
     matrix, with one stderr line."""
     with timing.phase("tree/route"):
         engine, store, prec, note = _route(flat, method, dtype, bytescale)
+    cells = np.asarray(flat)
+    if cells.dtype == np.uint8 and engine != "packed":
+        raise ValueError("u8 cells take the packed route only (-m dnj -b "
+                         "on a complete matrix, CCPHYLO_TORCH_ENGINE unset "
+                         "or packed)")
+    timing.count("tree/host_cell_bytes", cells.nbytes)
     sys.stderr.write(note)
     _dispatch_build.last_engine = _engine_name(engine, store, prec)
     if engine in ("exact", "packed", "sharded"):
@@ -396,10 +415,13 @@ def form_tree(inputfile, outputfile, flag, sep, quotes, method, precision,
     """formTree (tree.c:37-120)."""
     data = fileio.read_bytes(inputfile)
     stream = PhylipStream(data, sep=sep.encode(), quotes=quotes.encode())
+    # the packed route takes the loader's u8 cells, one byte a cell on
+    # the host (a matrix with a missing cell loads as float64)
+    u8_scale = bytescale if _packed_route(method, dtype) else None
     out = fileio.open_out(outputfile)
     t0 = time.process_time()
     while True:
-        loaded = stream.load()
+        loaded = stream.load(u8_scale)
         if loaded is None or loaded[0] == 0:
             break
         n, flat, names, header = loaded

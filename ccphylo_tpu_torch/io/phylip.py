@@ -18,6 +18,7 @@ Values print as "\t%d" when d == (int)d else "\t%.{precision}f"
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 
@@ -78,7 +79,7 @@ class PhylipStream:
         self.pos = nl + 1
         return line
 
-    def load(self):
+    def load(self, u8_scale: float | None = None):
         """Load the next matrix.
 
         Returns (n, flat, names, header) where flat is the float64
@@ -86,6 +87,12 @@ class PhylipStream:
         order, names the Name list (first n valid), header the bytes of a
         leading '#'-comment or None.  Returns None when the stream is
         exhausted (n == 0).
+
+        u8_scale: the ByteScale of a caller that takes -b cells.  Where
+        n > 2 and every cell is a number >= 0, flat is then the uint8
+        cells as loadPhy -b stores them (`dtouc_cells`), one byte a
+        cell; a matrix with a missing cell, and every matrix without
+        u8_scale, loads as float64.
         """
         data, sep = self.data, self.sep
         if self.pos >= len(data):
@@ -115,12 +122,19 @@ class PhylipStream:
             self._alloc += 1
 
         ncells = n * (n - 1) // 2
-        flat = np.empty(ncells, dtype=np.float64)
+        quant = u8_scale is not None and n > 2 and math.isfinite(u8_scale) \
+            and u8_scale > 0
 
         # --- native fast path (identical bytes; any parse trouble falls
         # back to the Python loop below, which raises the reference's
-        # exact error messages)
+        # exact error messages); u8 cells first where asked, then, if a
+        # cell refuses them, float64 cells
         nat = native.get_lib()
+        if nat is not None and quant:
+            cells = np.empty(ncells, dtype=np.uint8)
+            if self._load_native(nat, n, cells, u8_scale) is not None:
+                return n, cells, self.names, header
+        flat = np.empty(ncells, dtype=np.float64)
         if nat is not None:
             res = self._load_native(nat, n, flat)
             if res is not None:
@@ -183,22 +197,31 @@ class PhylipStream:
                             f"Malformatted phylip file, missing newline at row:\t{i}")
                     break
 
+        if quant and (flat >= 0).all():
+            return n, dtouc_cells(flat, u8_scale), self.names, header
         return n, flat, self.names, header
 
-    def _load_native(self, nat, n: int, flat: np.ndarray):
-        """Parse the n-row body with the C++ kernel (phy_body); returns
+    def _load_native(self, nat, n: int, flat: np.ndarray, u8_scale=None):
+        """Parse the n-row body with the C++ kernel (phy_body, or
+        phy_body_u8 into uint8 `flat` at ByteScale u8_scale); returns
         True on success (self.pos advanced, names updated), None to fall
-        back to the Python loop."""
+        back (self.pos unchanged)."""
         data = self.data
         pos = ctypes.c_int64(self.pos)
         name_offs = np.empty(2 * n, np.int64)
         raw_lens = np.empty(n, np.int64)
-        status = nat.phy_body(
-            _bytes_ptr(data), len(data), ctypes.byref(pos), n,
-            self.sep[0],
-            flat.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            name_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            raw_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        head = (_bytes_ptr(data), len(data), ctypes.byref(pos), n,
+                self.sep[0])
+        tail = (name_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                raw_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        if flat.dtype == np.uint8:
+            status = nat.phy_body_u8(
+                *head, float(u8_scale),
+                flat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), *tail)
+        else:
+            status = nat.phy_body(
+                *head, flat.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                *tail)
         if status != 0:
             return None
         self.pos = pos.value
@@ -210,6 +233,13 @@ class PhylipStream:
             stripped = data[name_offs[2 * i]:name_offs[2 * i + 1]]
             name.data = (quotes + stripped + quotes) if quotes else stripped
         return True
+
+
+def dtouc_cells(flat, bytescale: float) -> np.ndarray:
+    """Distances as loadPhy -b stores them (dtouc(d, 0.5), phy.c:473-475):
+    floor(d * bytescale + 0.5), clipped to [0, 255], one uint8 a cell."""
+    q = np.floor(np.asarray(flat, np.float64) * bytescale + 0.5)
+    return np.clip(q, 0, 255).astype(np.uint8)
 
 
 def load_phy(data: bytes, sep: bytes = b"\t", quotes: bytes = b"\x00"):

@@ -50,7 +50,8 @@ def _build() -> str | None:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
             subprocess.run(
-                [cxx, "-O3", "-shared", "-fPIC", "-std=c++17",
+                [cxx, "-O3", "-ffp-contract=off", "-shared", "-fPIC",
+                 "-std=c++17",
                  "-o", tmp, _SRC],
                 check=True, capture_output=True, timeout=180)
             os.replace(tmp, out)
@@ -89,6 +90,9 @@ def _load():
     lib.phy_body.restype = i64
     lib.phy_body.argtypes = [p_u8, i64, p_i64, i64, ctypes.c_uint8,
                              p_f64, p_i64, p_i64]
+    lib.phy_body_u8.restype = i64
+    lib.phy_body_u8.argtypes = [p_u8, i64, p_i64, i64, ctypes.c_uint8,
+                                ctypes.c_double, p_u8, p_i64, p_i64]
     lib.fmt_cells.restype = i64
     lib.fmt_cells.argtypes = [p_f64, i64, ctypes.c_int32, p_u8, i64]
     lib.mat_rows.restype = i64

@@ -61,8 +61,6 @@ static bool parse_short_decimal(const char *src, const char *tend,
     return true;
 }
 
-extern "C" {
-
 // ---------------------------------------------------------------------------
 // Phylip body parser (loadPhy row loop, phy.c:384-507).
 //
@@ -82,10 +80,14 @@ extern "C" {
 // Python parser, which reproduces the reference's exact error message):
 //   -1 unexpected EOF in a name      -2 unexpected EOF in a distance
 //   -3 malformed distance token      -4 missing newline mid-matrix
+// and 1 where `store` refuses a cell (phy_body_u8: a cell that is not a
+// number >= 0; the caller parses again with phy_body).
 // ---------------------------------------------------------------------------
-int64_t phy_body(const uint8_t *data, int64_t len, int64_t *pos,
-                 int64_t n, uint8_t sep, double *flat,
-                 int64_t *name_offs, int64_t *raw_lens) {
+template <class Store>
+static int64_t phy_body_cells(const uint8_t *data, int64_t len,
+                              int64_t *pos, int64_t n, uint8_t sep,
+                              Store store, int64_t *name_offs,
+                              int64_t *raw_lens) {
     int64_t p = *pos;
     int64_t cell = 0;
     for (int64_t i = 0; i < n; ++i) {
@@ -137,7 +139,7 @@ int64_t phy_body(const uint8_t *data, int64_t len, int64_t *pos,
             const char *tend = src + tlen;
             double fastval;
             if (parse_short_decimal(src, tend, &fastval)) {
-                flat[cell++] = fastval;
+                if (!store(cell++, fastval)) return 1;
                 continue;
             }
             char *end = nullptr;
@@ -155,7 +157,7 @@ int64_t phy_body(const uint8_t *data, int64_t len, int64_t *pos,
                 }
             }
             if (!ok) return -3;
-            flat[cell++] = val;
+            if (!store(cell++, val)) return 1;
         }
 
         // --- skip remainder of the line (full-matrix tolerance)
@@ -169,6 +171,38 @@ int64_t phy_body(const uint8_t *data, int64_t len, int64_t *pos,
     }
     *pos = p;
     return 0;
+}
+
+extern "C" {
+
+int64_t phy_body(const uint8_t *data, int64_t len, int64_t *pos,
+                 int64_t n, uint8_t sep, double *flat,
+                 int64_t *name_offs, int64_t *raw_lens) {
+    return phy_body_cells(
+        data, len, pos, n, sep,
+        [flat](int64_t k, double v) { flat[k] = v; return true; },
+        name_offs, raw_lens);
+}
+
+// phy_body with the cells stored as -b loads them: one byte a cell,
+// floor(v * bytescale + 0.5) clipped to [0, 255] (loadPhy's dtouc(v,
+// 0.5), phy.c:473-475), the same double operations as numpy's
+// np.clip(np.floor(v * bytescale + 0.5), 0, 255).  A cell that is not a
+// number >= 0 (a missing cell, NaN) returns 1: such a matrix keeps the
+// double cells.
+int64_t phy_body_u8(const uint8_t *data, int64_t len, int64_t *pos,
+                    int64_t n, uint8_t sep, double bytescale,
+                    uint8_t *cells, int64_t *name_offs,
+                    int64_t *raw_lens) {
+    return phy_body_cells(
+        data, len, pos, n, sep,
+        [cells, bytescale](int64_t k, double v) {
+            if (!(v >= 0)) return false;
+            double q = std::floor(v * bytescale + 0.5);
+            cells[k] = q > 255.0 ? 255 : (q < 0.0 ? 0 : (uint8_t)q);
+            return true;
+        },
+        name_offs, raw_lens);
 }
 
 // ---------------------------------------------------------------------------

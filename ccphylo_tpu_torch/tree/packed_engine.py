@@ -47,6 +47,7 @@ from ..ops.scan import dnj_scan, dnj_scan_passes, dnj_scan_plain, \
     dnj_scan_prepare
 from ..ops.segment import dnj_segment, dnj_segment_plain, \
     dnj_segment_prepare
+from ..io.phylip import dtouc_cells
 from ..ops.select import IBIG
 from ..utils import timing
 from ..utils.torchconfig import device as default_device
@@ -54,6 +55,7 @@ from .segmenting import run_segmented
 from .torch_engine import _host, _records_to_newick
 
 _CH = 512  # init row chunk
+_PACK_ROWS = 512  # rows of the triangle laid out and uploaded at a time
 
 # the batch scan of a join, by name: "segment" runs each segment's
 # scans and bodies together, as SEGMENTS[body]; one launch per join;
@@ -90,6 +92,39 @@ def pack_words(Dq_bytes: np.ndarray, device) -> torch.Tensor:
     assert npad % 4 == 0 and Dq_bytes.dtype == np.uint8
     return torch.from_numpy(np.ascontiguousarray(Dq_bytes)).to(device) \
         .view(torch.int32)
+
+
+def pack_cells(cells: np.ndarray, n: int, device) -> torch.Tensor:
+    """The lower triangle of n taxa as uint8 cells, row by row (row i:
+    cells (i, 0..i-1)) -> the engine's (npad, npad/4) int32 words on
+    `device`: the symmetric byte matrix, zero diagonal and padding.
+
+    A block of `_PACK_ROWS` rows is laid out on the host (each row's
+    cells, zeros to the block's last column), uploaded into its rows,
+    and mirrored on the device into the columns of the rows above it, so
+    only the cells, one block and the words are ever held."""
+    cells = np.asarray(cells)
+    if cells.dtype != np.uint8 or cells.shape != (n * (n - 1) // 2,):
+        raise ValueError(f"pack_cells takes the {n * (n - 1) // 2} uint8 "
+                         f"cells of {n} taxa, not {cells.dtype} "
+                         f"{cells.shape}")
+    npad = pad_packed(n)
+    words = torch.zeros((npad, npad // 4), dtype=torch.int32, device=device)
+    D8 = words.view(torch.uint8)
+    buf = np.empty(min(_PACK_ROWS, n) * n, np.uint8)
+    for r0 in range(0, n, _PACK_ROWS):
+        r1 = min(r0 + _PACK_ROWS, n)
+        blk = buf[:(r1 - r0) * r1].reshape(r1 - r0, r1)
+        at = r0 * (r0 - 1) // 2
+        for i in range(r0, r1):
+            blk[i - r0, :i] = cells[at:at + i]
+            blk[i - r0, i:] = 0
+            at += i
+        D8[r0:r1, :r1] = torch.from_numpy(blk).to(device)
+        D8[:r0, r0:r1] = D8[r0:r1, :r0].t()
+        tile = D8[r0:r1, r0:r1]
+        tile += tile.t().clone()
+    return words
 
 
 # ---------------------------------------------------------------------
@@ -327,33 +362,35 @@ def limbs_host(I, J, DIJ2, SDI2, SDJ2, m: int, bytescale: float,
     return Li, Lj
 
 
-def build_tree_packed(flat64: np.ndarray, n: int, names: list,
+def build_tree_packed(cells: np.ndarray, n: int, names: list,
                       flag: int = 0, precision: int = 9,
                       bytescale: float = 1.0, device=None,
                       scan: str = "segment",
                       body: str | None = None) -> bytes:
     """Packed-u8 DNJ on the device; Newick bytes (no ';').
 
-    Loads quantize like loadPhy -b (round 0.5, phy.c:473-475); complete
-    matrices only (quantized storage cannot hold missing cells).
-    Its spans (utils/timing.py) are its steps: tree/quantize (the u8
-    matrix and its upload), tree/engine (`dnj_joins_packed`: tree/init,
-    a tree/segment per segment, then a host read), tree/limbs
+    `cells` is the complete lower triangle, row by row: uint8 cells as
+    the -b loader stores them (`PhylipStream.load(u8_scale=)`), or
+    float64 distances, which load quantizes like loadPhy -b (round 0.5,
+    phy.c:473-475; `dtouc_cells`).  Quantized storage cannot hold
+    missing cells.
+    Its spans (utils/timing.py) are its steps: tree/pack (u8 cells: the
+    words made and uploaded by `pack_cells`) or tree/quantize (float64:
+    the u8 cells, then the same), tree/engine (`dnj_joins_packed`:
+    tree/init, a tree/segment per segment, then a host read), tree/limbs
     (`limbs_host`, the records' copy to the host included) and
     tree/newick; `build_tree_packed.last_times` holds each one's host
-    clock seconds of the last call under "quantize", "engine", "limbs"
-    and "newick"."""
+    clock seconds of the last call under "pack" or "quantize", "engine",
+    "limbs" and "newick"."""
     dev = default_device() if device is None else torch.device(device)
     times = build_tree_packed.last_times = {}
-    with timing.phase("tree/quantize", into=times):
-        npad = pad_packed(n)
-        Dq = np.zeros((npad, npad), np.uint8)
-        iu = np.tril_indices(n, -1)
-        qv = np.floor(np.asarray(flat64, np.float64) * bytescale + 0.5)
-        qv = np.clip(qv, 0, 255).astype(np.uint8)
-        Dq[(iu[0], iu[1])] = qv
-        Dq[(iu[1], iu[0])] = qv
-        words = pack_words(Dq, dev)
+    cells = np.asarray(cells)
+    if cells.dtype == np.uint8:
+        with timing.phase("tree/pack", into=times):
+            words = pack_cells(cells, n, dev)
+    else:
+        with timing.phase("tree/quantize", into=times):
+            words = pack_cells(dtouc_cells(cells, bytescale), n, dev)
     with timing.phase("tree/engine", into=times):
         I, J, DIJ2, SDI2, SDJ2, d_last2, _ = dnj_joins_packed(
             words, n, scan=scan, body=body)
