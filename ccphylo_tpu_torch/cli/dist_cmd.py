@@ -887,20 +887,26 @@ def _batch_shared(seqs, idxs, shared_inc):
 
 def _batch_pairwise(seqs, includes, idxs):
     """All-pairs (dist, shared) with per-sample masks (proxi == 0); the
-    spans and counter of `_batch_shared`, the u64 words uploaded as they
-    are, dist/convert the per-sample pair masks."""
+    spans and counter of `_batch_shared`.  On the device both the u64
+    words and the samples' u32 include words go up as the loader hands
+    them (the expansion kernel reads an include word per u64 word in
+    place), so dist/convert holds only the include words made one
+    contiguous u32 array (no copy of the loader's stack).  The counter
+    dist/inc_word_fills counts the device fills whose masks went up as
+    include words."""
     with timing.phase("dist/stack"):
         S = np.stack([seqs[i] for i in idxs])
         I = np.stack([includes[i] for i in idxs])
     if _use_device():
         dev = device()
         with timing.phase("dist/convert"):
-            pm = inc32_to_pairmask(I)
+            I = np.ascontiguousarray(I, np.uint32)
         with timing.phase("dist/upload"):
-            s64, pm = u64_tensor(S, dev), u32_tensor(pm, dev)
+            s64, inc = u64_tensor(S, dev), u32_tensor(I, dev)
         timing.count("dist/u64_fills")
+        timing.count("dist/inc_word_fills")
         with timing.phase("dist/kernels"):
-            D, N = snp_matrix_pairwise(s64, pm)
+            D, N = snp_matrix_pairwise(s64, inc)
         with timing.phase("dist/copy_back"):
             return D.cpu().numpy(), N.cpu().numpy()
     return snp.pairwise_masked(S, I)

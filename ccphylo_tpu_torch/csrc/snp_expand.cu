@@ -28,22 +28,36 @@
 // thread reads the one word it expands either way, so the reads stay
 // coalesced and the bytes read and written are the same; the host
 // skips a pass over every sample word (ops/snp_torch.py picks `swap`
-// from the words' dtype).  Pair masks are always u32 words, hi first.
+// from the words' dtype).
 //
-// What bounds it on Hopper: write bytes.  It reads 4 (8) bytes and
-// writes 48 (64) per word, so it is a pure HBM-write stream.  The design
-// is one thread per (row, word), 16-byte vector stores, neighbouring
-// threads on neighbouring 48-byte segments; the TPU version's
-// (TI=128, WB=512) VMEM tiling and its shift-major plane segments are
-// dropped.  The Gram itself is a separate int8 product (torch._int_mm),
-// as the JAX package leaves it to XLA.
+// Two layouts of the per-sample masks, one algorithm.  `inc_words` = 0:
+// a u32 pair mask per u32 sample word, hi first, base k included by bit
+// 30-2k.  `inc_words` = 1: the .fsa loader's u32 include words, one per
+// u64 sample word (32 positions, highest bit first), so u32 sample word
+// w is the hi (w even) or lo (w odd) half of include word w >> 1, base k
+// included by bit 15-k of that half.  Two neighbouring threads read the
+// same include word: the reads stay coalesced, the mask bytes read
+// halve, and the host makes no pair masks (ops/snp_torch.py picks the
+// layout from the masks' width).  The shared kernel's mask is always a
+// pair mask.
+//
+// What bounds it on Hopper: write bytes.  It reads 4 (8, or 6 on
+// include words) bytes and writes 48 (64) per word, so it is a pure
+// HBM-write stream.  The design is one thread per (row, word), 16-byte
+// vector stores, neighbouring threads on neighbouring 48-byte segments;
+// the TPU version's (TI=128, WB=512) VMEM tiling and its shift-major
+// plane segments are dropped.  The Gram itself is a separate int8
+// product (torch._int_mm), as the JAX package leaves it to XLA.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-// 48 output bytes of one word packed into 12 u32 registers
+// 48 output bytes of one word packed into 12 u32 registers; base k is
+// included by bit STEP * (15 - k) of m (STEP 2: a pair mask, 1: the half
+// of an include word)
+template <int STEP = 2>
 __device__ __forceinline__ void signed_planes(uint32_t s, uint32_t m,
                                               uint32_t out[12]) {
 #pragma unroll
@@ -51,7 +65,7 @@ __device__ __forceinline__ void signed_planes(uint32_t s, uint32_t m,
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     const int sh = 30 - 2 * k;
-    const int g = (m >> sh) & 1;
+    const int g = (m >> (STEP * (15 - k))) & 1;
     const int p1 = g * (1 - 2 * (int)((s >> (sh + 1)) & 1u));
     const int p0 = g * (1 - 2 * (int)((s >> sh) & 1u));
     const int v[3] = {p1, p0, p1 * p0};
@@ -63,12 +77,13 @@ __device__ __forceinline__ void signed_planes(uint32_t s, uint32_t m,
   }
 }
 
-// 16 include bytes (0/1) of one word
+// 16 include bytes (0/1) of one word, m as in signed_planes
+template <int STEP>
 __device__ __forceinline__ uint4 include_plane(uint32_t m) {
   uint32_t o[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int k = 0; k < 16; ++k)
-    o[k >> 2] |= ((m >> (30 - 2 * k)) & 1u) << (8 * (k & 3));
+    o[k >> 2] |= ((m >> (STEP * (15 - k))) & 1u) << (8 * (k & 3));
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
@@ -94,17 +109,29 @@ __global__ void expand_shared_kernel(const uint32_t* __restrict__ seqs,
 __global__ void expand_pairwise_kernel(const uint32_t* __restrict__ seqs,
                                        int ld_seq, int swap,
                                        const uint32_t* __restrict__ masks,
-                                       int ld_mask, int8_t* __restrict__ X,
+                                       int ld_mask, int inc_words,
+                                       int8_t* __restrict__ X,
                                        int8_t* __restrict__ M, int n,
                                        int W) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)n * W) return;
   const int i = (int)(t / W), w = (int)(t % W);
-  const uint32_t m = masks[(size_t)i * ld_mask + w];
+  const uint32_t s = seqs[(size_t)i * ld_seq + (w ^ swap)];
   uint32_t o[12];
-  signed_planes(seqs[(size_t)i * ld_seq + (w ^ swap)], m, o);
+  uint4 inc;
+  if (inc_words) {
+    // the hi half (w even) or lo half (w odd) of include word w >> 1
+    const uint32_t m =
+        masks[(size_t)i * ld_mask + (w >> 1)] >> (16 * (~w & 1));
+    signed_planes<1>(s, m, o);
+    inc = include_plane<1>(m);
+  } else {
+    const uint32_t m = masks[(size_t)i * ld_mask + w];
+    signed_planes<2>(s, m, o);
+    inc = include_plane<2>(m);
+  }
   store48(X + ((size_t)i * W + w) * 48, o);
-  *reinterpret_cast<uint4*>(M + ((size_t)i * W + w) * 16) = include_plane(m);
+  *reinterpret_cast<uint4*>(M + ((size_t)i * W + w) * 16) = inc;
 }
 
 constexpr int kThreads = 256;
@@ -131,16 +158,18 @@ int snp_expand_shared(const void* seqs, int ld_seq, int swap, const void* pm,
   return (int)cudaGetLastError();
 }
 
-// masks: n rows of W u32 pair masks, row stride ld_mask; M: (n, 16W)
-// int8, contiguous and 16-byte aligned.
+// masks: n rows, row stride ld_mask (in u32 words), of W u32 pair
+// masks (inc_words = 0) or of W / 2 u32 include words (inc_words = 1; W
+// even, the row starts at u32 sample word 0); M: (n, 16W) int8,
+// contiguous and 16-byte aligned.
 int snp_expand_pairwise(const void* seqs, int ld_seq, int swap,
-                        const void* masks, int ld_mask, void* X, void* M,
-                        int n, int W, void* stream) {
+                        const void* masks, int ld_mask, int inc_words,
+                        void* X, void* M, int n, int W, void* stream) {
   if (n > 0 && W > 0)
     expand_pairwise_kernel<<<blocks_for(n, W), kThreads, 0,
                              (cudaStream_t)stream>>>(
         (const uint32_t*)seqs, ld_seq, swap, (const uint32_t*)masks,
-        ld_mask, (int8_t*)X, (int8_t*)M, n, W);
+        ld_mask, inc_words, (int8_t*)X, (int8_t*)M, n, W);
   return (int)cudaGetLastError();
 }
 

@@ -41,8 +41,9 @@ ENTRY_POINTS = {
     "snp_expand": {
         # seqs, ld_seq, swap, pair_mask, X, n, W, stream
         "snp_expand_shared": [_P, _I, _I, _P, _P, _I, _I, _P],
-        # seqs, ld_seq, swap, masks, ld_mask, X, M, n, W, stream
-        "snp_expand_pairwise": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _P],
+        # seqs, ld_seq, swap, masks, ld_mask, inc_words, X, M, n, W, stream
+        "snp_expand_pairwise": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I,
+                                _P],
     },
     "qrow_mins": {
         # rows, K, co, words, n, sd2, slotof (or null), rmin, rarg, stream

@@ -28,7 +28,18 @@ dtype; the algorithm is the same, only the index of a word differs:
   62..0.  Chunk bounds are multiples of WB u32 words, so a chunk holds
   whole u64 words.  The CLI's fills pass these.
 
-Pair masks are always int32 u32 words, hi first (`inc32_to_pairmask`).
+Per-sample masks come in one of two layouts too, told apart by their
+width against the W u32 sample words (`_inc_words`):
+
+- W columns: pair masks, int32 u32 words hi first (`inc32_to_pairmask`),
+  base k of word w included by bit 30-2k.  The shared mask is always
+  one; the dry run, interop and the tests pass these.
+- W / 2 columns (W even): the loader's u32 include words as they are, one
+  per u64 sample word, position p of its 32 at bit 31-p; u32 sample
+  word w is the hi (w even) or lo (w odd) half of include word w >> 1.
+  Chunk bounds are multiples of WB, so a chunk holds whole include
+  words.  The CLI's per-sample fills pass these.
+
 Words are held as signed bit patterns (CPU torch has no unsigned
 shifts); bits are extracted with ``(x >> s) & mask``, identical under
 arithmetic and logical shifts.  Counts are exact integers, bit-identical
@@ -111,10 +122,30 @@ def _bases(seqs: torch.Tensor) -> torch.Tensor:
     return (seqs[..., None] >> sh) & 3
 
 
+def _inc_words(masks: torch.Tensor, W: int) -> bool:
+    """Whether masks of W u32 sample words are include words (W / 2
+    columns) rather than pair masks (W columns)."""
+    if masks.shape[-1] == W:
+        return False
+    if W % 2 == 0 and masks.shape[-1] == W // 2:
+        return True
+    raise ValueError(f"masks of {W} u32 sample words need {W} columns "
+                     f"(pair masks) or, W even, {W // 2} (include "
+                     f"words), got {tuple(masks.shape)}")
+
+
+def _include_bits(masks: torch.Tensor, W: int) -> torch.Tensor:
+    """(n|1, W, 16) include bits of either mask layout."""
+    if _inc_words(masks, W):
+        sh = torch.arange(31, -1, -1, dtype=torch.int32, device=masks.device)
+        return ((masks[..., None] >> sh) & 1).reshape(masks.shape[0], W, 16)
+    sh = torch.tensor(_SHIFTS, dtype=torch.int32, device=masks.device)
+    return (masks[..., None] >> sh) & 1
+
+
 def _planes_plain(seqs: torch.Tensor, masks: torch.Tensor):
-    sh = torch.tensor(_SHIFTS, dtype=torch.int32, device=seqs.device)
     b = _bases(seqs)                                    # (n, W, 16)
-    g = (masks[..., None] >> sh) & 1                    # (n|1, W, 16)
+    g = _include_bits(masks, b.shape[1])                # (n|1, W, 16)
     p1 = (1 - 2 * ((b >> 1) & 1)) * g
     p0 = (1 - 2 * (b & 1)) * g
     X = torch.stack([p1, p0, p1 * p0], dim=-1).to(torch.int8)
@@ -130,7 +161,8 @@ def expand_shared_plain(seqs: torch.Tensor, pm: torch.Tensor):
 
 def expand_pairwise_plain(seqs: torch.Tensor, masks: torch.Tensor):
     """Plain version of the per-sample-mask expansion: X (n, 48W) and
-    include plane M (n, 16W) int8, M[i, 16w + k]."""
+    include plane M (n, 16W) int8, M[i, 16w + k]; masks are (n, W) pair
+    masks or (n, W/2) include words."""
     X, g = _planes_plain(seqs, masks)
     return X, g.to(torch.int8).reshape(seqs.shape[0], -1)
 
@@ -174,21 +206,23 @@ def expand_shared(seqs: torch.Tensor, pm: torch.Tensor) -> torch.Tensor:
 
 def expand_pairwise(seqs: torch.Tensor, masks: torch.Tensor):
     """Per-sample-mask expansion: (X, M) of int32 or int64 sample words
-    and (n, W) int32 pair masks.  On a CUDA tensor: the
+    and int32 masks, (n, W) pair masks or (n, W/2) include words (the
+    module's two mask layouts).  On a CUDA tensor: the
     snp_expand_pairwise kernel; on a CPU tensor: its plain version."""
     if seqs.device.type == "cpu":
         return expand_pairwise_plain(seqs, masks)
     s, ld, W, swap = _kernel_words(seqs)
     _check_words("masks", masks, 2)
+    inc = _inc_words(masks, W)
     n = s.shape[0]
-    if masks.shape != s.shape or masks.device != seqs.device:
-        raise ValueError("masks must be (n, W) u32 words on the same "
+    if masks.shape[0] != n or masks.device != seqs.device:
+        raise ValueError("masks must be n rows of u32 words on the same "
                          "device as seqs")
     X = torch.empty((n, 48 * W), dtype=torch.int8, device=seqs.device)
     M = torch.empty((n, 16 * W), dtype=torch.int8, device=seqs.device)
     build.launch("snp_expand", "snp_expand_pairwise", s.data_ptr(), ld,
-                 swap, masks.data_ptr(), masks.stride(0), X.data_ptr(),
-                 M.data_ptr(), n, W, device=seqs.device)
+                 swap, masks.data_ptr(), masks.stride(0), int(inc),
+                 X.data_ptr(), M.data_ptr(), n, W, device=seqs.device)
     return X, M
 
 
@@ -278,14 +312,16 @@ def sharded_snp_matrix(seqs: torch.Tensor, paircmask: torch.Tensor,
 
 def snp_matrix_pairwise(seqs: torch.Tensor, incmasks: torch.Tensor,
                         wchunk: int | None = None):
-    """All-pairs (dist, shared) with per-sample pair masks (proxi == 0:
-    the pair mask of two samples is the AND of theirs).
+    """All-pairs (dist, shared) with per-sample masks (proxi == 0: the
+    pair mask of two samples is the AND of theirs).
 
     seqs: (n, W) int32 or (n, W/2) int64 (as `snp_matrix`); incmasks:
-    (n, W) int32.  Returns (dist, shared) (n, n) int32, bit-identical to
-    ops/snp_jax.snp_matrix_pairwise and ops/snp_pallas.snp_matrix_pairwise."""
+    int32, (n, W) pair masks or (n, W/2) include words.  Returns (dist,
+    shared) (n, n) int32, bit-identical to ops/snp_jax.snp_matrix_pairwise
+    and ops/snp_pallas.snp_matrix_pairwise."""
     k = _u32_per_col(seqs)
     n, W = seqs.shape[0], k * seqs.shape[1]
+    m = 2 if _inc_words(incmasks, W) else 1   # u32 words a mask column covers
     B, npad, wc = _layout(n, W, wchunk)
     seqs = _pad_rows(seqs, npad)
     incmasks = _pad_rows(incmasks, npad)
@@ -293,7 +329,7 @@ def snp_matrix_pairwise(seqs: torch.Tensor, incmasks: torch.Tensor,
     shared = torch.zeros_like(gram)
     for w0 in range(0, W, wc):
         X, M = expand_pairwise(seqs[:, w0 // k:(w0 + wc) // k],
-                               incmasks[:, w0:w0 + wc])
+                               incmasks[:, w0 // m:(w0 + wc) // m])
         _tri_dot_acc(gram, X, B)
         _tri_dot_acc(shared, M, B)
     shared = _mirror_tril(shared)

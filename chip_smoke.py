@@ -13,7 +13,9 @@ exits non-zero, no exception is caught:
 1. build: compile the CUDA kernels from ccphylo_tpu_torch/csrc (nvcc,
    sm_90a, one process per source, in parallel);
 2. kernels: hold each kernel bit-exactly against its plain version on
-   the card, at the main path's shapes, and time both.  The fused scan
+   the card, at the main path's shapes, and time both (the pairwise
+   expansion also on the loader's include words against their pair
+   masks, the two mask layouts timed in turns).  The fused scan
    `dnj_scan` and the join body `dnj_join` are held against
    `dnj_scan_plain` and `dnj_join_plain` here on an all-tie matrix, and
    in phases 3 and 4 on every join of a real run's prefix
@@ -1394,6 +1396,17 @@ def phase_kernels(dev, g, res):
             err["snp_expand_pairwise"],
             max_abs_err(snp_torch.expand_pairwise(s64, m),
                         snp_torch.expand_pairwise(s32, m)))
+    # the loader's u32 include words (one per u64 sample word) as the
+    # pairwise kernel's masks expand to the bytes of their pair masks,
+    # on both word layouts
+    inc = rand_words((EXP_ROWS, EXP_WORDS // 2))
+    inc_pm = snp_torch.u32_tensor(snp_torch.inc32_to_pairmask(
+        inc.cpu().numpy().view(np.uint32)), dev)
+    for s in (big, big64):
+        err["snp_expand_pairwise"] = max(
+            err["snp_expand_pairwise"],
+            max_abs_err(snp_torch.expand_pairwise(s, inc),
+                        snp_torch.expand_pairwise(s, inc_pm)))
     t = res["kernel_ms"] = {}
     # bytes: the words (and masks) read once, the int8 planes written once
     nw = EXP_ROWS * EXP_WORDS
@@ -1412,7 +1425,14 @@ def phase_kernels(dev, g, res):
         for _ in range(3)
         for name, w in (("u32", big), ("u64", big64), ("u64", big64),
                         ("u32", big))]
-    del big, big64, masks, rag, rag32, rag64, full, rag_m
+    # the pairwise kernel on the loader's u64 words with pair masks and
+    # with include words in turns (pair, inc, inc, pair, ...)
+    res["expand_pairwise_masks_ms"] = [
+        [name, cuda_ms(lambda: snp_torch.expand_pairwise(big64, m), 50)]
+        for _ in range(3)
+        for name, m in (("pair", inc_pm), ("inc", inc), ("inc", inc),
+                        ("pair", inc_pm))]
+    del big, big64, masks, rag, rag32, rag64, full, rag_m, inc, inc_pm
 
     # batch scan at n = 32768 (1 GiB matrix): random, padding, repeated,
     # all-tie rows

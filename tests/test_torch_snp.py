@@ -207,3 +207,86 @@ def test_u64_expansion_equals_u32_expansion():
     v, ld, W, swap = snp_torch._kernel_words(w32[:, 5:9])
     assert (ld, W, swap) == (26, 4, 0) and v.data_ptr() == \
         w32[:, 5:9].data_ptr()
+
+
+# --- the loader's include words as per-sample masks ---------------------
+
+
+def _run_masks(n, W64, seed):
+    """(n, W64) u32 include words: each sample's uncalled runs start and
+    end at bits 15/16 and 31/0 of an include word (the two halves' and
+    the words' edges), plus scattered single uncalled positions."""
+    rng = np.random.default_rng(seed)
+    L = 32 * W64
+    called = rng.random((n, L)) > 0.03
+    edges = np.array([0, 15, 16, 31])
+    for i in range(n):
+        for _ in range(4):
+            a = 32 * rng.integers(0, W64) + rng.choice(edges)
+            b = 32 * rng.integers(0, W64) + rng.choice(edges)
+            a, b = min(a, b), max(a, b) + 1
+            called[i, a:b] = False
+    return np.packbits(called, axis=1).view(">u4").astype(np.uint32)
+
+
+def _words(s64, dtype):
+    """The loader's u64 words as the int64 tensor, or converted to the
+    int32 (u32 hi-first) tensor."""
+    if dtype == "int64":
+        return snp_torch.u64_tensor(s64, "cpu")
+    return _t(snp_torch.u64_to_u32(s64))
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+@pytest.mark.parametrize("rows, W64", [(100, 257), (600, 551)],
+                         ids=["rows100", "rows600"])
+def test_inc_word_counts_match(dtype, rows, W64):
+    """`snp_matrix_pairwise` on the loader's include words (W/2 columns)
+    equals it on their pair masks, snp_jax and the host kernels of
+    ops/snp.py: row padding, several row blocks (600) and an odd u64
+    width, so the last wchunk=512 chunk is ragged."""
+    s64 = _u64_data(rows, W64, seed=rows + W64 + 1)[0]
+    incs = _run_masks(rows, W64, seed=rows)
+    words = _words(s64, dtype)
+    pms = snp_torch.inc32_to_pairmask(incs)
+    d, sh = snp_torch.snp_matrix_pairwise(words, _t(incs), wchunk=512)
+    dp, shp = snp_torch.snp_matrix_pairwise(words, _t(pms), wchunk=512)
+    dj, shj = snp_jax.snp_matrix_pairwise(
+        jnp.asarray(snp_torch.u64_to_u32(s64)), jnp.asarray(pms), wchunk=512)
+    hd, hn = snp.pairwise_masked(s64, incs)
+    for ours, ref in ((d, dp), (sh, shp), (d, dj), (sh, shj)):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(d.numpy(), hd)
+    off = ~np.eye(rows, dtype=bool)
+    np.testing.assert_array_equal(sh.numpy()[off], hn[off])
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+def test_inc_word_expansion_equals_pair_mask_expansion(dtype):
+    """expand_pairwise_plain (and expand_pairwise on the CPU) on include
+    words gives the X and M bytes of the same call on their pair masks:
+    whole rows, and a column slice of whole u64 words."""
+    s64 = _u64_data(24, 13, seed=12)[0]
+    incs = _run_masks(24, 13, seed=13)
+    words, inc = _words(s64, dtype), _t(incs)
+    pms = _t(snp_torch.inc32_to_pairmask(incs))
+    k = 1 if dtype == "int64" else 2     # word columns a u64 word takes
+    for lo, hi in ((0, 13), (3, 10)):
+        s = words[:, k * lo:k * hi]
+        want = snp_torch.expand_pairwise_plain(s, pms[:, 2 * lo:2 * hi])
+        for fn in (snp_torch.expand_pairwise_plain,
+                   snp_torch.expand_pairwise):
+            for got, ref in zip(fn(s, inc[:, lo:hi]), want):
+                torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_inc_words_need_an_even_width():
+    """An odd-W int32 slice cannot take include words: W / 2 columns is
+    no whole number, and neither width is a pair mask's."""
+    s32 = _t(snp_torch.u64_to_u32(_u64_data(8, 4, seed=14)[0]))[:, 1:8]
+    for cols in (3, 4):
+        inc = _t(_run_masks(8, 4, seed=15))[:, :cols]
+        with pytest.raises(ValueError, match="include"):
+            snp_torch.expand_pairwise_plain(s32, inc)
+        with pytest.raises(ValueError, match="include"):
+            snp_torch.snp_matrix_pairwise(s32, inc)

@@ -4,7 +4,9 @@ kernels, on whole rows and on a column slice (row stride != width),
 equal their plain PyTorch versions and their own output on the
 converted int32 words, bit for bit; `snp_matrix` and
 `snp_matrix_pairwise` on int64 words equal the int32 route and the host
-numpy kernels.
+numpy kernels.  The pairwise kernel on the loader's u32 include words
+(one per u64 word) equals it on their pair masks and its plain version,
+on both word layouts, whole and column-sliced, and so do the counts.
 
 Every test needs an NVIDIA card (marker `card`) and skips without one:
 a CUDA kernel has no CPU mode.  This file imports neither JAX nor the
@@ -84,6 +86,66 @@ def test_u64_counts_on_the_card(dev, kind):
     d32, sh32 = snp_torch.snp_matrix_pairwise(w32, pms, wchunk=512)
     _same(d, d32)
     _same(sh, sh32)
+    hd, hn = snp.pairwise_masked(s64, incs)
+    np.testing.assert_array_equal(d.cpu().numpy(), hd)
+    off = ~np.eye(600, dtype=bool)
+    np.testing.assert_array_equal(sh.cpu().numpy()[off], hn[off])
+
+
+def _run_masks(n, W64, seed):
+    """(n, W64) u32 include words whose uncalled runs start and end at
+    bits 15/16 and 31/0 of a word, plus scattered uncalled positions."""
+    rng = np.random.default_rng(seed)
+    called = rng.random((n, 32 * W64)) > 0.03
+    edges = np.array([0, 15, 16, 31])
+    for i in range(n):
+        for _ in range(4):
+            a = 32 * rng.integers(0, W64) + rng.choice(edges)
+            b = 32 * rng.integers(0, W64) + rng.choice(edges)
+            called[i, min(a, b):max(a, b) + 1] = False
+    return np.packbits(called, axis=1).view(">u4").astype(np.uint32)
+
+
+def _words(s64, dtype, dev):
+    if dtype == "int64":                                    # swap = 1
+        return snp_torch.u64_tensor(s64, dev)
+    return snp_torch.u32_tensor(snp_torch.u64_to_u32(s64), dev)  # swap 0
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+@pytest.mark.parametrize("cols", [None, (7, 1031)], ids=["whole", "slice"])
+def test_inc_word_kernel_equals_pair_masks_and_plain(dev, dtype, cols):
+    s64 = _data(1000, 1100, seed=23)[0]
+    incs = _run_masks(1000, 1100, seed=24)
+    w = _words(s64, dtype, dev)
+    inc = snp_torch.u32_tensor(incs, dev)
+    pms = snp_torch.u32_tensor(snp_torch.inc32_to_pairmask(incs), dev)
+    if cols is not None:
+        lo, hi = cols
+        k = 1 if dtype == "int64" else 2
+        w, inc, pms = w[:, k * lo:k * hi], inc[:, lo:hi], pms[:, 2 * lo:2 * hi]
+        assert inc.stride(0) != inc.shape[1]
+    XM = snp_torch.expand_pairwise(w, inc)
+    for got, pair, plain in zip(XM, snp_torch.expand_pairwise(w, pms),
+                                snp_torch.expand_pairwise_plain(w, inc)):
+        _same(got, pair)
+        _same(got, plain)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+def test_inc_word_counts_on_the_card(dev, dtype):
+    """600 rows (several row blocks, padding), an odd u64 width at
+    wchunk=512 (a ragged last chunk)."""
+    s64 = _data(600, 551, seed=25)[0]
+    incs = _run_masks(600, 551, seed=26)
+    w = _words(s64, dtype, dev)
+    d, sh = snp_torch.snp_matrix_pairwise(
+        w, snp_torch.u32_tensor(incs, dev), wchunk=512)
+    dp, shp = snp_torch.snp_matrix_pairwise(
+        w, snp_torch.u32_tensor(snp_torch.inc32_to_pairmask(incs), dev),
+        wchunk=512)
+    _same(d, dp)
+    _same(sh, shp)
     hd, hn = snp.pairwise_masked(s64, incs)
     np.testing.assert_array_equal(d.cpu().numpy(), hd)
     off = ~np.eye(600, dtype=bool)

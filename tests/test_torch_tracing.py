@@ -241,15 +241,22 @@ DIST_SEAMS = {"_batch_shared": (lambda: dist_cmd._batch_shared,
 @pytest.mark.parametrize("seam", list(DIST_SEAMS))
 def test_dist_seams_upload_u64_words_unconverted(fresh, monkeypatch, seam):
     """The device route (the plain versions on the CPU) never converts
-    the sample words to u32 (`u64_to_u32` raises here) and gives the
-    counts of the CCPHYLO_TORCH_DIST=host route; each of its fills
-    counts one `dist/u64_fills` while tracing is on, none while off."""
+    the sample words to u32 (`u64_to_u32` raises here), nor, in
+    `_batch_pairwise`, the samples' include words to pair masks
+    (`inc32_to_pairmask` raises), and gives the counts of the
+    CCPHYLO_TORCH_DIST=host route; each of its fills counts one
+    `dist/u64_fills` (and, per-sample masks, one `dist/inc_word_fills`)
+    while tracing is on, none while off."""
     from ccphylo_tpu_torch.ops import snp_torch
 
-    def refuse(*a, **k):
-        raise AssertionError("u64_to_u32 called on the device route")
-    monkeypatch.setattr(snp_torch, "u64_to_u32", refuse)
-    monkeypatch.setattr(dist_cmd, "u64_to_u32", refuse, raising=False)
+    refused = ["u64_to_u32"]
+    if seam == "_batch_pairwise":
+        refused.append("inc32_to_pairmask")
+    for name in refused:
+        def refuse(*a, _name=name, **k):
+            raise AssertionError(f"{_name} called on the device route")
+        monkeypatch.setattr(snp_torch, name, refuse)
+        monkeypatch.setattr(dist_cmd, name, refuse, raising=False)
     fn, inputs = DIST_SEAMS[seam]
     args = inputs()
     ours = fn()(*args)
@@ -268,4 +275,6 @@ def test_dist_seams_upload_u64_words_unconverted(fresh, monkeypatch, seam):
         fn()(*args)
         fn()(*args)
     assert timing.counters()["dist/u64_fills"] == 2
+    assert timing.counters().get("dist/inc_word_fills", 0) == \
+        (2 if seam == "_batch_pairwise" else 0)
     assert timing.spans()["dist/convert"][1] == 2
