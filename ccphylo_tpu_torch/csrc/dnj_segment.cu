@@ -7,9 +7,8 @@
 // calls per pass (ccphylo_tpu/ops/scan_pallas.py:49), then the jnp join
 // body.  Its plain form is ops/segment.py::dnj_segment_plain, the loop
 // over the joins of ops/scan.py::dnj_scan_plain then
-// ops/join.py::dnj_join_plain.  It merges the kernels of one join,
-// csrc/dnj_scan.cu (the scan) and csrc/dnj_join.cu (the body), whose
-// notes describe the two halves; this note says what the merge changes.
+// ops/join.py::dnj_join_plain; the scan's passes and the body's phases
+// below run in one launch.
 //
 // What it computes: joins t in [t0, t1), with m_t = m - t active rows,
 // co = 2 (m_t - 2), co_post = 2 (m_t - 3), last = m_t - 1, all on the
@@ -21,7 +20,44 @@
 // end.  The state arrays after the launch are bit-equal to the plain
 // loop's.
 //
-// What bounded the two-launch join on Hopper (PERF.md §5-§6): not
+// The scan.  Q[r] caches the minimum of row r's join criterion and P[r]
+// its column; the caches may be stale (too low).  From the seed row's
+// (minv, pi, pj), while some row r in [1, m_t) has Q[r] < minv: take the
+// K largest such rows, in descending order; compute each row's true
+// (rmin, rarg) as qrow_mins does; write it back to (Q[r], P[r]) where
+// Q[r] undercuts the running minimum of minv and the rmin of the rows
+// before it in that order (the C's cache rule); lower (minv, pi, pj) to
+// the pass's smallest rmin, ties to the larger row.  Two facts shape
+// it.  (a) A scanned row ends its pass with Q[r] >= the new minv, and
+// minv only falls, so within a join no row is a candidate twice: the
+// next pass's candidates lie below this pass's smallest selected row,
+// and there is a next pass only if this one found more than K; so a
+// walk reads only Q entries that no pass of the join has written, and
+// the changed rows are counted where they are written.  (b) Block k
+// needs only the candidate of rank k and the total, both functions of
+// (Q below the bound, minv), so every block selects for itself: each
+// warp counts the candidates of its own stripe of Q in 16-byte loads,
+// top stripe first, and the warp whose stripe holds rank k walks it
+// again with ballots to find the row.
+//
+// The body, thread g owning k = g, g + G kThreads, ... in every phase
+// (so a cell or cache entry one phase writes and the next reads is read
+// by its owner, and the column-j update of Q[k] precedes the column-i
+// update of the same Q[k] in program order): (A) the records, updateD
+// of row and column j and of sD2[k], a per-block partial of sum d;
+// grid barrier (row and column j written before row `last` is read and
+// before column i overwrites D[j][i]; every sD2[k] final before the
+// repairs read it); (B) sD2[j] from the partials, sD2[i] = sD2[last],
+// the repairs of row and column j, the row move with the repairs of row
+// and column i, each with per-block partials (minimum, largest index at
+// it) of the four reductions; grid barrier; (C) the reductions, Q and P
+// of rows j and i, Q[last] = IBIG, the seed.  Sums and (min, largest
+// index) reductions are exact in any order, so the result is bit-equal
+// to the plain version whatever the blocks' order.
+//
+// What bounded a join of two cooperative launches on Hopper (the design
+// this kernel replaced: a scan kernel wrote the pair (i, j) to the card,
+// a join-body kernel read it there; PERF.md §6): not
 // bytes (a join moves ~30 m_t bytes and reads Q per pass; microseconds
 // of HBM time at m_t = 32768) but latency: two cooperative launches, a
 // memset and a Python loop step per join on the host (32-64 us of
@@ -54,8 +90,7 @@
 //    reduction reads four blocks' results a lane at once, phase C a
 //    block's 8 partials at once and reduces all four in one pass, and
 //    thread 0 reads the next join's seed row (Q and P) in phase C.
-//  - the scan itself is dnj_scan.cu's: block k scans the pass's row of
-//    rank k whole (row_min.cuh's body in row_min_l2, its loads through
+//  - the row scan: block k scans the pass's row of rank k whole (row_min.cuh's body in row_min_l2, its loads through
 //    L2, four vectors deep).  Two other designs were bit-equal and not
 //    kept (PERF.md has their times): a ring of bulk copies streaming
 //    each block's row through shared memory, and every block scanning a
@@ -322,7 +357,7 @@ dnj_segment_kernel(unsigned char* D, int n, int* sd2, int* Q, int* P,
     int minv = s_state[0], pi = s_state[1], pj = s_state[2];
     MARK(kPQ);
 
-    // ---- the batch scan (dnj_scan.cu's passes)
+    // ---- the batch scan's passes
     const int4* Q4 = reinterpret_cast<const int4*>(stage ? Qs : Q);
     int hi = m_t, npass = 0;
     for (;;) {
@@ -475,7 +510,7 @@ dnj_segment_kernel(unsigned char* D, int n, int* sd2, int* Q, int* P,
     MARK(kPSelect);  // a walk that found no candidate
     npass_all += npass;
 
-    // ---- the join body (dnj_join.cu's phases)
+    // ---- the join body's phases
     const int i = pi, j = pj;
     if (i == 0 && j == 0) {  // no joinable pair: every block takes this
       if (lead) I[t] = J[t] = DIJ2[t] = SDI2[t] = SDJ2[t] = 0;

@@ -30,9 +30,9 @@
 // is not resident (slotof[r] < 0) is scanned as a row without columns,
 // as padding is, and never read.
 //
-// The row body lives in row_min.cuh, shared with dnj_scan.cu, which runs
-// every pass of a join's scan in one launch; this kernel serves the
-// engine's host-driven loop of passes (ops/scan.py::dnj_scan_passes).
+// The row body lives in row_min.cuh.  This kernel serves the host-driven
+// loop of passes (ops/scan.py::dnj_scan_passes) of the row-cache engine;
+// the packed engine scans inside its segment kernel (dnj_segment.cu).
 
 #include "row_min.cuh"
 

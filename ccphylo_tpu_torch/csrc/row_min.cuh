@@ -1,6 +1,6 @@
-// Row body of the packed DNJ engine's batch scan, shared by the
-// qrow_mins kernel (qrow_mins.cu) and the fused scan (dnj_scan.cu), and
-// the block reductions of its join body (dnj_join.cu, dnj_segment.cu).
+// Row body of the packed DNJ engine's batch scan, used by the qrow_mins
+// kernel (qrow_mins.cu), and the block reductions that the segment
+// kernel (dnj_segment.cu) uses too.
 //
 // The u8 distance matrix is stored as u32 words, four cells per word in
 // little-endian byte lanes (cell c of a row is byte c % 4 of word
@@ -8,9 +8,10 @@
 //     q[c] = co * cell[r, c] - sd2[r] - sd2[c]   for c < r
 // and the block returns the minimum and the largest c at the minimum.
 // Arithmetic is int32 with two's-complement wrap (done in unsigned).
-// The row body reads through the read-only path: neither kernel writes
-// the cells or sd2.  dnj_segment.cu, whose join body writes both in the
-// same launch, keeps a row body of its own that reads through L2.
+// The row body reads through the read-only path: qrow_mins writes
+// neither the cells nor sd2.  dnj_segment.cu, whose join body writes
+// both in the same launch, keeps a row body of its own that reads
+// through L2.
 
 #pragma once
 

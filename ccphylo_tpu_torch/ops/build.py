@@ -49,16 +49,6 @@ ENTRY_POINTS = {
         # rows, K, co, words, n, sd2, slotof (or null), rmin, rarg, stream
         "qrow_mins": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     },
-    "dnj_scan": {
-        # words, sd2, n, Q, P, seed, m_t, co, K, scratch, out, stream
-        "dnj_scan": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    },
-    "dnj_join": {
-        # words, n, sd2, Q, P, seed, out, I, J, DIJ2, SDI2, SDJ2, stats,
-        # t, m_t, B, scratch, stream
-        "dnj_join": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _P, _P],
-    },
     "dnj_segment": {
         # words, n, sd2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats, t0,
         # t1, m, G, scratch, flags, stream
@@ -76,8 +66,6 @@ ENTRY_POINTS = {
 # source stem -> {C function that launches nothing: argtypes}; each
 # returns an int of its own meaning (see `query`)
 QUERIES = {
-    "dnj_scan": {"dnj_scan_max_blocks": []},
-    "dnj_join": {"dnj_join_max_blocks": []},
     # flags, n
     "dnj_segment": {"dnj_segment_max_blocks": [_I, _I]},
     # flags, n, G; flags, n, G; G, n, flags

@@ -8,29 +8,22 @@ the state in place: updateD of row and column j, the cache repair of
 row and column j, popArrange (row `last` into row and column i) with
 the repair of row and column i, and the seed of the next join.
 
-- `dnj_join` (csrc/dnj_join.cu): one cooperative launch that reads
-  (i, j) from `out` on the card, so a join of the engine is two
-  launches and no host read.  On a CUDA tensor it launches the kernel
-  or raises; on a CPU tensor it runs the plain version.
-- `dnj_join_plain`: the same in plain PyTorch, with one host read of
-  (i, j) (free on the CPU) that its slices and branches need.
-
-Both take the engine's state tensors in the order of the engine's state
-keys (words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats), then the
-scan's result, the join's index t and the active rows m_t.
+`dnj_join_plain` is that body in plain PyTorch, with one host read of
+(i, j) (free on the CPU) that its slices and branches need; it is the
+body of ops/segment.py's `dnj_segment_plain`, whose kernel runs the
+same body on the card.  It takes the engine's state tensors in the
+order of the engine's state keys (words, sD2, Q, P, seed, I, J, DIJ2,
+SDI2, SDJ2, stats), then the scan's result, the join's index t and the
+active rows m_t.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import build
 from .select import IBIG, consts
 
-_max_blocks: dict = {}  # device -> co-resident blocks of dnj_join
-_aranges: dict = {}     # (n, device) -> arange(n) int32
-BLOCK_CELLS = 1024      # row cells per block of a launch
-SCRATCH_PER_BLOCK = 9   # a partial sum and four (min, index) partials
+_aranges: dict = {}  # (n, device) -> arange(n) int32
 
 
 def _arange(n: int, dev) -> torch.Tensor:
@@ -147,13 +140,12 @@ def dnj_join_plain(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats,
                                 mj_cand, mi_cand))))
 
 
-def check_join_args(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats,
-                    blocks: int, max_blocks: int) -> None:
-    """Raise ValueError unless the state suits the dnj_join kernel: words
-    (n, n/4) int32 with n % 4 == 0, the records and sD2, Q, P (n,) int32,
-    seed (1,) int64, stats (4,) int32, all contiguous on one device, and
-    1 <= blocks <= max_blocks (the co-resident blocks of a cooperative
-    launch)."""
+def check_join_args(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2,
+                    stats) -> None:
+    """Raise ValueError unless the state suits the engine's kernels:
+    words (n, n/4) int32 with n % 4 == 0, the records and sD2, Q, P
+    (n,) int32, seed (1,) int64, stats (4,) int32, all contiguous on one
+    device."""
     dev = words.device
     named = (("words", words), ("sD2", sD2), ("Q", Q), ("P", P), ("I", I),
              ("J", J), ("DIJ2", DIJ2), ("SDI2", SDI2), ("SDJ2", SDJ2),
@@ -171,56 +163,3 @@ def check_join_args(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats,
         raise ValueError("bad shapes: words " + str(tuple(words.shape))
                          + "".join(f", {k} {tuple(x.shape)}"
                                    for k, x in named[1:]))
-    if not 1 <= blocks <= max_blocks:
-        raise ValueError(
-            f"blocks = {blocks}: a cooperative launch of dnj_join holds 1 "
-            f"to {max_blocks} blocks on {dev} (a value <= 0 is a CUDA "
-            "error code or a card without cooperative launch)")
-
-
-def dnj_join_prepare(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2,
-                     stats):
-    """Check the state once for a run of `dnj_join` launches and
-    allocate their scratch; returns `prep` for `dnj_join`: the scratch
-    and the block count, one block per BLOCK_CELLS rows within what the
-    card holds at once."""
-    dev = words.device
-    if dev not in _max_blocks:
-        with torch.cuda.device(dev):
-            _max_blocks[dev] = build.query("dnj_join", "dnj_join_max_blocks")
-    blocks = max(1, min(_max_blocks[dev], -(-words.shape[0] // BLOCK_CELLS)))
-    check_join_args(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats,
-                    blocks, _max_blocks[dev])
-    scratch = torch.empty(SCRATCH_PER_BLOCK * blocks, dtype=torch.int32,
-                          device=dev)
-    return scratch, blocks
-
-
-def dnj_join(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats,
-             out: torch.Tensor, t: int, m_t: int, prep=None) -> None:
-    """`dnj_join_plain`'s contract.  On a CUDA tensor: the dnj_join
-    kernel, which reads (i, j) from `out` on the card.  `prep` (from
-    `dnj_join_prepare` on the same tensors) skips the per-call checks of
-    the state and the scratch allocation; `out`, t and m_t are checked
-    on every call."""
-    if words.device.type == "cpu":
-        return dnj_join_plain(words, sD2, Q, P, seed, I, J, DIJ2, SDI2,
-                              SDJ2, stats, out, t, m_t)
-    if prep is None:
-        prep = dnj_join_prepare(words, sD2, Q, P, seed, I, J, DIJ2, SDI2,
-                                SDJ2, stats)
-    scratch, blocks = prep
-    dev = words.device
-    n = words.shape[0]
-    if out.dtype != torch.int32 or out.shape != (4,) \
-            or not out.is_contiguous() or out.device != dev:
-        raise ValueError(f"out: expected a contiguous (4,) int32 tensor on "
-                         f"{dev}")
-    if not (0 <= t < n and 3 <= m_t <= n):
-        raise ValueError(f"t = {t}, m_t = {m_t}: need 0 <= t < {n} and "
-                         f"3 <= m_t <= {n}")
-    build.launch("dnj_join", "dnj_join", words.data_ptr(), n,
-                 sD2.data_ptr(), Q.data_ptr(), P.data_ptr(), seed.data_ptr(),
-                 out.data_ptr(), I.data_ptr(), J.data_ptr(), DIJ2.data_ptr(),
-                 SDI2.data_ptr(), SDJ2.data_ptr(), stats.data_ptr(), int(t),
-                 int(m_t), blocks, scratch.data_ptr(), device=dev)

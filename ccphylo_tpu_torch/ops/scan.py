@@ -2,19 +2,17 @@
 ops/scan_pallas.py and of the batch-scan while_loop of
 tree/packed_engine.py:157-214).
 
-Two kernels, each with its plain PyTorch version beside it; a wrapper
-launches its kernel on a CUDA tensor and takes the plain version only
-for a CPU tensor:
-
-- `qrow_mins` (csrc/qrow_mins.cu): the row minima of one pass.  Plain
+- `qrow_mins` (csrc/qrow_mins.cu): the row minima of one pass.  On a
+  CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
   version `qrow_mins_plain`, the jnp expression of
   tree/packed_engine.py:183-189.  With `slots` the matrix is a cache of
   rows (tree/streamed_engine.py:209-229): row r is read from storage
   row slots[r].
-- `dnj_scan` (csrc/dnj_scan.cu): the whole scan of one join, every pass
-  of it, in one cooperative launch.  Plain version `dnj_scan_plain`,
-  the host-driven loop of passes `dnj_scan_passes` over
-  `qrow_mins_plain`.
+- `dnj_scan_passes`: the whole scan of one join as a host-driven loop
+  of passes over a `qrow` (the row-cache engine's scan, over
+  `qrow_mins` through its slots);
+  `dnj_scan_plain` is that loop over `qrow_mins_plain`, the scan of
+  ops/segment.py's `dnj_segment_plain`.
 """
 
 from __future__ import annotations
@@ -23,8 +21,6 @@ import torch
 
 from . import build
 from .select import IBIG, consts, topk_mask_indices
-
-_max_blocks: dict = {}  # device -> co-resident blocks of dnj_scan
 
 
 def qrow_mins_plain(rows: torch.Tensor, co: int, words: torch.Tensor,
@@ -94,16 +90,15 @@ def qrow_mins(rows: torch.Tensor, co: int, words: torch.Tensor,
 
 def dnj_scan_passes(words: torch.Tensor, sD2: torch.Tensor,
                     Q: torch.Tensor, P: torch.Tensor, seed: torch.Tensor,
-                    m_t: int, co: int, K: int, qrow=qrow_mins,
-                    ensure=None):
+                    m_t: int, co: int, K: int, qrow, ensure=None):
     """The batch scan of one join as a host-driven loop of passes
     (reference bcond/bbody, tree/packed_engine.py:157-214).
 
     words: (n, n/4) int32; sD2, Q, P: (n,) int32; seed: (1,) int64;
     m_t: rows still active; co: Q row coefficient on raw cells; K:
     candidate rows per pass.  Starting from the seed row's cached
-    minimum, revalidates the K best candidate rows per pass (`qrow`
-    gives their true minima) until no row's cached Q undercuts the
+    minimum, revalidates the K best candidate rows per pass (`qrow`,
+    called as qrow(rows, co, words, sD2), gives their true minima) until no row's cached Q undercuts the
     current minimum; Q and P are updated in place.  Each pass costs one
     host read.  `ensure`, if given, is called before each pass's `qrow`
     with the pass's rows as a list of ints (descending, -1 padding): the
@@ -160,65 +155,7 @@ def dnj_scan_passes(words: torch.Tensor, sD2: torch.Tensor,
 
 
 def dnj_scan_plain(words, sD2, Q, P, seed, m_t: int, co: int, K: int):
-    """Plain version of `dnj_scan`: `dnj_scan_passes` over
-    `qrow_mins_plain`."""
+    """The batch scan of one join in plain PyTorch: `dnj_scan_passes`
+    over `qrow_mins_plain`."""
     return dnj_scan_passes(words, sD2, Q, P, seed, m_t, co, K,
                            qrow=qrow_mins_plain)
-
-
-def dnj_scan_prepare(words: torch.Tensor, sD2: torch.Tensor,
-                     Q: torch.Tensor, P: torch.Tensor, seed: torch.Tensor,
-                     K: int) -> torch.Tensor:
-    """Check the arguments of a run of `dnj_scan` launches once and
-    allocate their buffer: 4 int32 for the result, then the 6 K of the
-    kernel's scratch.  Returns `prep` for `dnj_scan`.  The kernel needs
-    n % 128 == 0, 16-byte aligned words, sD2 and Q, and K within what
-    the card holds at once."""
-    dev = words.device
-    n, W = words.shape
-    for name, t in (("words", words), ("sD2", sD2), ("Q", Q), ("P", P)):
-        if t.dtype != torch.int32 or not t.is_contiguous() \
-                or t.device != dev:
-            raise ValueError(f"{name}: expected a contiguous int32 tensor "
-                             f"on {dev}")
-    if seed.dtype != torch.int64 or seed.shape != (1,) or seed.device != dev:
-        raise ValueError(f"seed: expected a (1,) int64 tensor on {dev}")
-    if 4 * W != n or n % 128 or not (sD2.shape == Q.shape == P.shape
-                                     == (n,)):
-        raise ValueError(f"bad shapes: words {tuple(words.shape)}, sD2 "
-                         f"{tuple(sD2.shape)}, Q {tuple(Q.shape)}, P "
-                         f"{tuple(P.shape)}")
-    if words.data_ptr() % 16 or sD2.data_ptr() % 16 or Q.data_ptr() % 16:
-        raise ValueError("words, sD2 and Q must be 16-byte aligned")
-    if dev not in _max_blocks:
-        with torch.cuda.device(dev):
-            _max_blocks[dev] = build.query("dnj_scan", "dnj_scan_max_blocks")
-    if not 1 <= K <= _max_blocks[dev]:
-        raise ValueError(
-            f"K = {K}: a cooperative launch of dnj_scan holds 1 to "
-            f"{_max_blocks[dev]} blocks on {dev} (a value <= 0 is a CUDA "
-            "error code or a card without cooperative launch)")
-    return torch.empty(4 + 6 * K, dtype=torch.int32, device=dev)
-
-
-def dnj_scan(words: torch.Tensor, sD2: torch.Tensor, Q: torch.Tensor,
-             P: torch.Tensor, seed: torch.Tensor, m_t: int, co: int,
-             K: int, prep: torch.Tensor | None = None) -> torch.Tensor:
-    """`dnj_scan_passes`'s contract, in one launch and with no host read.
-    On a CUDA tensor: the dnj_scan kernel, K co-resident blocks in a
-    cooperative launch.  `prep` (from `dnj_scan_prepare` on the same
-    tensors and K) skips the checks and the allocation; the result is
-    then a view of it, overwritten by the next launch."""
-    if words.device.type == "cpu":
-        return dnj_scan_plain(words, sD2, Q, P, seed, m_t, co, K)
-    if prep is None:
-        prep = dnj_scan_prepare(words, sD2, Q, P, seed, K)
-    n = words.shape[0]
-    if not 1 <= m_t <= n:
-        raise ValueError(f"m_t = {m_t} outside [1, {n}]")
-    out = prep[:4]
-    build.launch("dnj_scan", "dnj_scan", words.data_ptr(), sD2.data_ptr(),
-                 n, Q.data_ptr(), P.data_ptr(), seed.data_ptr(), int(m_t),
-                 int(co), K, prep[4:].data_ptr(), out.data_ptr(),
-                 device=words.device)
-    return out

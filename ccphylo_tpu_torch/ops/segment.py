@@ -81,8 +81,7 @@ def check_segment_args(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2,
     the join body's state (`check_join_args`), n % 128 == 0, words, sD2
     and Q 16-byte aligned, and 1 <= K <= max_blocks (the co-resident
     blocks of a cooperative launch)."""
-    check_join_args(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats,
-                    1, 1)
+    check_join_args(words, sD2, Q, P, seed, I, J, DIJ2, SDI2, SDJ2, stats)
     n = words.shape[0]
     if n % 128:
         raise ValueError(f"n = {n}: the kernel needs n % 128 == 0")

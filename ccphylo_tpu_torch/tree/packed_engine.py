@@ -17,37 +17,27 @@ the Newick bytes equal the host exact -b engine's.
 
 The join loop runs on the device between the fences of
 tree/segmenting.py (every SEG joins), the counterpart of the reference's
-device loop `_packed_segment`.  On a card, by default (`scan="segment"`),
-a segment is one launch of `dnj_segment` (ops/segment.py), every scan
-pass and join body of the segment in one persistent kernel; the join
-records stay on the device and the host does nothing between fences.
-`scan="fused"` keeps the loop of two launches a join: the batch scan
-`dnj_scan` (ops/scan.py), which writes the picked pair (i, j) to a
-device buffer, and the join body `dnj_join` (ops/join.py), which reads
-it there, both enqueued by a Python loop.  The plain versions
-(`scan="plain"`, `body="plain"`) read (i, j) on the host once per join,
-and so does every route on a CPU tensor, where that read is free.  Two
-TPU workarounds of the reference are not carried over: compile-cache
-shape bucketing (rows are padded to a multiple of 512 only) and the
-sibling-row rebuild of a word column (a byte column is written
-directly).
+device loop `_packed_segment`.  A segment is one call of `dnj_segment`
+(ops/segment.py): on a card, one launch of the dnj_segment kernel runs
+every scan pass and join body of the segment, the join records stay on
+the device and the host does nothing between fences; on a CPU tensor
+its plain version runs, reading the pair (i, j) on the host once per
+join, where that read is free.  Two TPU workarounds of the reference
+are not carried over: compile-cache shape bucketing (rows are padded to
+a multiple of 512 only) and the sibling-row rebuild of a word column (a
+byte column is written directly).
 """
 
 from __future__ import annotations
 
-import functools
 import os
 import time
 
 import numpy as np
 import torch
 
-from ..ops.join import dnj_join, dnj_join_plain, dnj_join_prepare
-from ..ops.scan import dnj_scan, dnj_scan_passes, dnj_scan_plain, \
-    dnj_scan_prepare
-from ..ops.segment import dnj_segment, dnj_segment_plain, \
-    dnj_segment_prepare
 from ..io.phylip import dtouc_cells
+from ..ops.segment import dnj_segment, dnj_segment_prepare
 from ..ops.select import IBIG
 from ..utils import timing
 from ..utils.torchconfig import device as default_device
@@ -56,24 +46,6 @@ from .torch_engine import _host, _records_to_newick
 
 _CH = 512  # init row chunk
 _PACK_ROWS = 512  # rows of the triangle laid out and uploaded at a time
-
-# the batch scan of a join, by name: "segment" runs each segment's
-# scans and bodies together, as SEGMENTS[body]; one launch per join;
-# the host-driven loop of passes over the qrow_mins kernel; the plain
-# PyTorch version (the reference of the tests and of the smoke run)
-SCANS = {"segment": None, "fused": dnj_scan, "passes": dnj_scan_passes,
-         "plain": dnj_scan_plain}
-# the join body, by name: the dnj_join kernel (its plain version on a
-# CPU tensor); the plain PyTorch version
-BODIES = {"kernel": dnj_join, "plain": dnj_join_plain}
-# the joins of a segment under scan="segment", by the body's name: one
-# dnj_segment launch (its plain version on a CPU tensor); the plain
-# loop of dnj_scan_plain and dnj_join_plain
-SEGMENTS = {"kernel": dnj_segment, "plain": dnj_segment_plain}
-# the kernel wrappers, with the step that checks their arguments and
-# allocates their buffers once per run
-_PREPARE = {dnj_scan: dnj_scan_prepare, dnj_join: dnj_join_prepare,
-            dnj_segment: dnj_segment_prepare}
 
 _STATE_KEYS = ("words", "sD2", "Q", "P", "seed", "I", "J", "DIJ2",
                "SDI2", "SDJ2", "stats")
@@ -172,23 +144,6 @@ def _packed_init(words: torch.Tensor, m: int):
 
 
 # ---------------------------------------------------------------------
-# one join
-
-
-def _one_join(st: dict, t: int, m: int, kbatch: int, scan, body):
-    """Join t (reference one_join, tree/packed_engine.py:151-345) on
-    state `st`, in place: the batch scan `scan` (ops/scan.py), then the
-    join body `body` (ops/join.py) on the scan's result."""
-    m_t = m - t
-    co = 2 * (m_t - 2)  # Q row coefficient on raw cells
-    # revalidate the best candidate rows until no row's cached Q
-    # undercuts the current minimum; the result holds the pair (i, j)
-    res = scan(st["words"], st["sD2"], st["Q"], st["P"], st["seed"], m_t,
-               co, kbatch)
-    body(*(st[k] for k in _STATE_KEYS), res, t, m_t)
-
-
-# ---------------------------------------------------------------------
 # checkpoints: the reference's npz format (_STATE_KEYS + meta)
 
 
@@ -248,20 +203,15 @@ def _ckpt_load(path, n, m, kbatch, device):
 
 
 def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
-                     hooks=None, scan: str = "segment",
-                     body: str | None = None):
+                     hooks=None):
     """All m-2 DNJ joins over the packed u8 matrix, in place.
 
     words: (npad, npad/4) int32 (use `pack_words`); m: active taxa.
     Returns (I, J, DIJ2, SDI2, SDJ2, d_last2, words): int32 join records
     in u = 1/(2*ByteScale) units (convert limbs with `limbs_host`) on
-    the device of `words`, and the final words buffer.  `hooks`, if
-    given, is passed to run_segmented; `scan` names the batch scan, one
-    of SCANS, and `body` the join body, one of BODIES (identical
-    records): with scan="segment" (the default) a segment runs as
-    SEGMENTS[body], one dnj_segment launch for "kernel".  `body`
-    defaults to "kernel", and to "plain" with scan="plain": the
-    all-plain run, the oracle of the kernels.
+    the device of `words`, and the final words buffer.  Each segment is
+    one `dnj_segment` call with `kbatch` candidate rows a scan pass;
+    `hooks`, if given, is passed to run_segmented.
 
     CCPHYLO_TORCH_CKPT=/path/file.npz snapshots the state every
     CCPHYLO_TORCH_CKPT_EVERY_S seconds (default 300) at a fenced segment
@@ -271,13 +221,6 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
     uninterrupted run."""
     n, W = words.shape
     assert 4 * W == n, "words must tile a square byte matrix"
-    if body is None:
-        body = "plain" if scan == "plain" else "kernel"
-    bodies = SEGMENTS if scan == "segment" else BODIES
-    for name, val, table in (("scan", scan, SCANS), ("body", body, bodies)):
-        if val not in table:
-            raise ValueError(f"{name} must be one of {sorted(table)}, not "
-                             f"{val!r}")
     m = int(m)
     dev = words.device
     ckpt_path, ckpt_every = _ckpt_config()
@@ -293,25 +236,13 @@ def dnj_joins_packed(words: torch.Tensor, m: int, kbatch: int = 128,
                   "SDI2": z.clone(), "SDJ2": z.clone(),
                   "stats": torch.zeros(4, dtype=torch.int32, device=dev)}
             start = 0
-        scan_fn, body_fn = SCANS[scan], BODIES.get(body)
-        seg_fn = SEGMENTS[body] if scan == "segment" else None
-        if dev.type == "cuda":  # arguments checked, buffers made, once a run
-            if seg_fn in _PREPARE:
-                seg_fn = functools.partial(seg_fn, prep=_PREPARE[seg_fn](
-                    *(st[k] for k in _STATE_KEYS), kbatch))
-            if scan_fn in _PREPARE:
-                scan_fn = functools.partial(scan_fn, prep=_PREPARE[scan_fn](
-                    *(st[k] for k in _STATE_KEYS[:5]), kbatch))
-            if body_fn in _PREPARE and seg_fn is None:
-                body_fn = functools.partial(body_fn, prep=_PREPARE[body_fn](
-                    *(st[k] for k in _STATE_KEYS)))
+        # on a card: arguments checked, buffers made, once a run
+        prep = dnj_segment_prepare(*(st[k] for k in _STATE_KEYS), kbatch) \
+            if dev.type == "cuda" else None
 
     def seg_call(st, t0, t1):
-        if seg_fn is not None:
-            seg_fn(*(st[k] for k in _STATE_KEYS), t0, t1, m, kbatch)
-            return st
-        for t in range(t0, t1):
-            _one_join(st, t, m, kbatch, scan_fn, body_fn)
+        dnj_segment(*(st[k] for k in _STATE_KEYS), t0, t1, m, kbatch,
+                    prep=prep)
         return st
 
     last_ckpt = [time.perf_counter()]
@@ -364,9 +295,7 @@ def limbs_host(I, J, DIJ2, SDI2, SDJ2, m: int, bytescale: float,
 
 def build_tree_packed(cells: np.ndarray, n: int, names: list,
                       flag: int = 0, precision: int = 9,
-                      bytescale: float = 1.0, device=None,
-                      scan: str = "segment",
-                      body: str | None = None) -> bytes:
+                      bytescale: float = 1.0, device=None) -> bytes:
     """Packed-u8 DNJ on the device; Newick bytes (no ';').
 
     `cells` is the complete lower triangle, row by row: uint8 cells as
@@ -393,7 +322,7 @@ def build_tree_packed(cells: np.ndarray, n: int, names: list,
             words = pack_cells(dtouc_cells(cells, bytescale), n, dev)
     with timing.phase("tree/engine", into=times):
         I, J, DIJ2, SDI2, SDJ2, d_last2, _ = dnj_joins_packed(
-            words, n, scan=scan, body=body)
+            words, n)
     with timing.phase("tree/limbs", into=times):
         LI, LJ = limbs_host(I, J, DIJ2, SDI2, SDJ2, n, bytescale,
                             neg_limbs=bool(flag & 2))

@@ -15,50 +15,42 @@ exits non-zero, no exception is caught:
 2. kernels: hold each kernel bit-exactly against its plain version on
    the card, at the main path's shapes, and time both (the pairwise
    expansion also on the loader's include words against their pair
-   masks, the two mask layouts timed in turns).  The fused scan
-   `dnj_scan` and the join body `dnj_join` are held against
-   `dnj_scan_plain` and `dnj_join_plain` here on an all-tie matrix, and
-   in phases 3 and 4 on every join of a real run's prefix
-   (`CheckedScan`, `CheckedJoin`), where they are also timed; the
-   segment kernel `dnj_segment`, each of its flag sets (SEG_FLAGS: Q
-   in shared memory, the default, or read through L2),
-   against `dnj_segment_plain` at every boundary of CHECK_SEG joins
-   (`held_to_plain`), every state array, the flag sets timed in turns;
+   masks, the two mask layouts timed in turns).  The segment kernel
+   `dnj_segment`, each of its flag sets (SEG_FLAGS: Q in shared memory,
+   the default, or read through L2), is held against
+   `dnj_segment_plain` at every boundary of CHECK_SEG joins
+   (`held_to_plain`), every state array, the flag sets timed in turns,
+   here on an all-tie matrix and in phases 3 and 4 on a real run;
 3. main path: n = 2048 isolates of L = 1 Mbp, a clonal outbreak
    generated on the card from a seed, through the port's CLI seams on
    the host arrays the CLI hands them: `dist` (dist_cmd._batch_shared
    and _batch_pairwise; rows checked against the host numpy kernels)
    into `tree -m dnj -b` (tree_cmd._dispatch_build on the packed
    engine's device loop: one dnj_segment launch per segment of
-   segmenting.SEG joins, no dnj_scan or dnj_join launch, no host read
-   between fences; its seconds split into quantization, engine, limbs
-   and Newick; Newick checked against the host-driven passes over
-   qrow_mins, the all-plain run and the host exact -b engine).  The
-   launch counts of the `kernels` line are this phase's: the counters
-   are set to 0 just before each path and read just after it, and each
-   kernel's entry names its path (KERNEL_PATH): dnj_segment and the
-   expansion kernels the main path (dist and the seam's tree);
-   dnj_scan, dnj_join the two-launch loop (scan "fused"); qrow_mins the
-   passes run.  In turns through
-   build_tree_packed: segment, two launches a join, the same, segment;
-   then the join body kernel, plain, plain, kernel; the engine alone in
-   turns the same way (`engine_turns`).  dnj_scan and dnj_join are held
-   to their plain versions on every join of the whole tree, dnj_segment
-   at every CHECK_SEG joins of it; `SegmentProbe` runs the first
-   segment under torch.cuda.set_sync_debug_mode("error") (a host read
-   would raise) and measures the card's ms per join (CUDA events, the
-   launch queued behind a spin) and the host's µs per segment;
-   `segment_breakdown` splits a segment's card time into the parts of
-   a join (the kernel's PROFILE clock counts);
+   segmenting.SEG joins, no other launch, no host read between fences;
+   its seconds split into quantization, engine, limbs and Newick;
+   Newick checked against the host exact -b engine).  The launch counts
+   of the `kernels` line are this phase's: the counters are set to 0
+   just before the path and read just after it, and each kernel's entry
+   names its path (KERNEL_PATH): dnj_segment and the expansion kernels
+   the main path (dist and the seam's tree), qrow_mins_slots the
+   streamed phase, dnj_segment_float the engines phase; qrow_mins
+   without slots, which no path launches, is held and timed in phase 2
+   and has no entry there.  dnj_segment is held
+   to its plain version at every CHECK_SEG joins of the whole tree;
+   `probe_segment` runs the first segment under
+   torch.cuda.set_sync_debug_mode("error") (a host read would raise)
+   and measures the card's ms per join (CUDA events, the launch queued
+   behind a spin) and the host's µs per segment; `segment_breakdown`
+   splits a segment's card time into the parts of a join (the kernel's
+   PROFILE clock counts);
 4. at scale: n = 32768 isolates of 100 kbp from the same outbreak
    model, through `dist` into the packed engine (a 1 GiB u8 matrix);
-   dist rows are checked against the host kernels, the first joins
-   against an all-plain run, the engine alone in turns (segment,
-   two launches a join, the same, segment), dnj_scan and dnj_join
-   against their plain versions on the first CHECKED_JOINS joins (their
-   times there are the `kernels` line's), dnj_segment at every
-   CHECK_SEG joins of them (its first launch the `kernels` line's),
-   `SegmentProbe` and `segment_breakdown` as in phase 3.  Then the
+   dist rows are checked against the host kernels, the first
+   PREFIX_JOINS joins against the plain loop, dnj_segment at every
+   CHECK_SEG joins of the first CHECKED_JOINS (its first launch the
+   `kernels` line's), `probe_segment` and `segment_breakdown` as in
+   phase 3.  Then the
    float engine's segment kernel `dnj_segment_float` on the float64
    copy of this matrix (8.6 GB): held to `dnj_segment_float_plain` at
    every boundary of CHECK_SEG joins of the first CHECKED_JOINS, every
@@ -89,7 +81,7 @@ exits non-zero, no exception is caught:
    the evidence's; the run's flags and launches asserted (one
    dnj_segment a segment, nothing else).  At 100,000 first dnj_segment
    without Q against dnj_segment_plain every CHECK_SEG joins of the
-   first CHECKED_JOINS, `SegmentProbe` and `segment_breakdown`; the
+   first CHECKED_JOINS, `probe_segment` and `segment_breakdown`; the
    seconds of each step, joins/s, passes per join and the peak memory
    on the card printed with the card's name and power limit;
 5. engines: the float64 device engines of all seven tree methods
@@ -272,7 +264,7 @@ TREE_METHODS = ("dnj", "upgma", "ff", "cf", "hnj", "nj", "mn")
 RANDOM_METHODS = ("dnj", "upgma", "cf", "hnj")  # run on the random matrix
 MISSING_METHODS = ("dnj", "upgma")  # run on the matrix with missing cells
 EXP_ROWS, EXP_WORDS = 2048, 2048  # one genome chunk of the main path
-PREFIX_JOINS = 1024  # plain-scan check of the phase-4 run
+PREFIX_JOINS = 1024  # plain-loop check of the phase-4 run
 CHECKED_JOINS = 256  # joins of a run on which the kernels are held to plain
 CHECK_SEG = 64       # joins of each dnj_segment launch held to plain
 SEG_SPIN = 2_000_000  # cycles the card spins before each timed launch
@@ -284,7 +276,7 @@ SEG_FLAGS = {"Q": segment.STAGE_Q, "no Q": 0}
 KBATCH = 128         # candidate rows per scan pass (the engine's default)
 X_SCALE = 8192       # cache rows of the row-cache engine at n = N_SCALE
 STREAM_JOINS = 4096  # its joins held against the packed engine's
-STREAM_MORE = 1024   # its first joins, timed beside the passes scan's
+STREAM_MORE = 1024   # its first joins, timed apart
 N_STREAM, X_STREAM = 4096, 1024  # its whole run
 K_MAT, L_MAT, L_MAT_SMALL = 128, 1_000_000, 100_000  # count matrices
 MAT_MIN_DEPTH = 15   # dist's default -E
@@ -314,13 +306,6 @@ KERNEL_META = {
                           "ccphylo_tpu/ops/snp_pallas.py:69"),
     "snp_expand_pairwise": ("ccphylo_tpu_torch/csrc/snp_expand.cu",
                             "ccphylo_tpu/ops/snp_pallas.py:80"),
-    "qrow_mins": ("ccphylo_tpu_torch/csrc/qrow_mins.cu",
-                  "ccphylo_tpu/ops/scan_pallas.py:49"),
-    "dnj_scan": ("ccphylo_tpu_torch/csrc/dnj_scan.cu",
-                 "ccphylo_tpu/ops/scan_pallas.py:49"),
-    # the jnp join body inside the device loop _packed_segment (no Pallas)
-    "dnj_join": ("ccphylo_tpu_torch/csrc/dnj_join.cu",
-                 "ccphylo_tpu/tree/packed_engine.py:215"),
     # the device loop of joins _packed_segment itself: scan and body
     "dnj_segment": ("ccphylo_tpu_torch/csrc/dnj_segment.cu",
                     "ccphylo_tpu/tree/packed_engine.py:450"),
@@ -335,15 +320,6 @@ KERNEL_META = {
 # where it is not the main path (dist, then tree -m dnj -b through
 # _dispatch_build): (its key in the results, its description)
 KERNEL_PATH = {
-    "qrow_mins": (("path_launches", "passes"),
-                  "tree -m dnj -b at n = 2048, build_tree_packed "
-                  "scan=\"passes\""),
-    "dnj_scan": (("path_launches", "fused"),
-                 "tree -m dnj -b at n = 2048, build_tree_packed "
-                 "scan=\"fused\" (two launches a join)"),
-    "dnj_join": (("path_launches", "fused"),
-                 "tree -m dnj -b at n = 2048, build_tree_packed "
-                 "scan=\"fused\" (two launches a join)"),
     "qrow_mins_slots": (("streamed_launches",),
                         "the row-cache engine at n = 32768 (phase "
                         "streamed)"),
@@ -425,94 +401,6 @@ def scan_bytes(rows: torch.Tensor, nq: int) -> int:
     return int(r.sum()) + 4 * longest + 4 * nq + 12 * r.numel()
 
 
-class CheckedScan:
-    """A batch scan for pe.SCANS that holds `dnj_scan` against
-    `dnj_scan_plain` on every join it is given, bit for bit (result, Q
-    and P).  With `timed`, it also times both on the first join of each
-    kind: no pass, one pass, several passes."""
-
-    KINDS = ("zero passes", "one pass, fewer than K", "several passes")
-
-    def __init__(self, timed=False):
-        self.timing = timed
-        self.joins = 0
-        self.err = 0
-        self.kinds = dict.fromkeys(self.KINDS, 0)
-        self.timed = []  # dicts: join, passes, rows, ms, plain_ms, bound_ms
-
-    def __call__(self, words, sD2, Q, P, seed, m_t, co, K):
-        scanned = []
-
-        def recording(rows, co, words, sd2):
-            scanned.append(rows)
-            return scan.qrow_mins_plain(rows, co, words, sd2)
-
-        # dnj_scan_plain, with the rows of each pass noted for the bound
-        Qp, Pp = Q.clone(), P.clone()
-        ref = scan.dnj_scan_passes(words, sD2, Qp, Pp, seed, m_t, co, K,
-                                   qrow=recording)
-        npass = int(ref[2])
-        kind = self.KINDS[min(npass, 2)]
-        if self.timing and not self.kinds[kind]:
-            rows = torch.cat(scanned) if scanned else Q.new_zeros(0)
-            self._time(rows, npass, words, sD2, Q, P, seed, m_t, co, K)
-        res = scan.dnj_scan(words, sD2, Q, P, seed, m_t, co, K)
-        err = max_abs_err((res, Q, P), (ref, Qp, Pp))
-        self.err = max(self.err, err)
-        assert err == 0, f"dnj_scan differs from its plain version at " \
-                         f"join {self.joins}: {res.tolist()} {ref.tolist()}"
-        self.kinds[kind] += 1
-        self.joins += 1
-        return res
-
-    def _time(self, rows, npass, words, sD2, Q, P, seed, m_t, co, K):
-        reps = 20
-        copies = [(Q.clone(), P.clone()) for _ in range(2 * (reps + 1))]
-        it = iter(copies)
-        ms = cuda_ms(lambda: scan.dnj_scan(words, sD2, *next(it), seed,
-                                           m_t, co, K), reps)
-        plain = cuda_ms(lambda: scan.dnj_scan_plain(
-            words, sD2, *next(it), seed, m_t, co, K), reps)
-        self.timed.append({
-            "join": self.joins, "m_t": m_t, "passes": npass,
-            "rows": int((rows >= 1).sum()), "ms": ms, "plain_ms": plain,
-            "bound_ms": bytes_ms(scan_bytes(rows, m_t) + 16)})
-
-    def summary(self) -> dict:
-        k = max(len(self.timed), 1)
-        return {"joins": self.joins, "max_abs_err": self.err,
-                "kinds": self.kinds, "timed": self.timed,
-                "ms": sum(t["ms"] for t in self.timed) / k,
-                "plain_ms": sum(t["plain_ms"] for t in self.timed) / k,
-                "bound_ms": sum(t["bound_ms"] for t in self.timed) / k}
-
-
-class _Stop(Exception):
-    pass
-
-
-def run_prefix(words, n, joins, scan_name, body=None):
-    """The first `joins` joins of the packed engine on `words` (updated
-    in place), in one fenced segment; returns the join records so far as
-    numpy arrays."""
-    prefix = {}
-
-    def stop(st, done, total):
-        prefix.update({k: st[k].cpu().numpy() for k in
-                       ("I", "J", "DIJ2", "SDI2", "SDJ2")})
-        raise _Stop
-
-    seg, segmenting.SEG = segmenting.SEG, joins
-    try:
-        pe.dnj_joins_packed(words, n, kbatch=KBATCH, hooks=stop,
-                            scan=scan_name, body=body)
-    except _Stop:
-        pass
-    finally:
-        segmenting.SEG = seg
-    return prefix
-
-
 def words_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest difference of two byte matrices (as int32 words), cell by
     cell, in row blocks."""
@@ -530,106 +418,6 @@ def join_bytes(n, m_t, i, j, q_changed) -> int:
     row and column i written over the padded width n; the records."""
     b = 4 * m_t + 8 * m_t + 4 * (m_t - j - 1) + 8 * q_changed + 40
     return b + (3 * n if i != m_t - 1 else 0)
-
-
-class CheckedJoin:
-    """A join body for pe.BODIES that holds `dnj_join` against
-    `dnj_join_plain` on every join it is given, bit for bit: the byte
-    matrix, sD2, Q, P, the seed, the five records and the stats.  With
-    `timed`, it also times both on the first join of each kind
-    (popArrange, i == last)."""
-
-    KINDS = ("popArrange", "i == last")
-
-    def __init__(self, timed=False):
-        self.timing = timed
-        self.joins = 0
-        self.err = 0
-        self.kinds = dict.fromkeys(self.KINDS + ("m_t == 3",), 0)
-        self.timed = []  # dicts: join, m_t, kind, ms, plain_ms, bound_ms
-        self._copy = None
-
-    def _state_copy(self, state):
-        if self._copy is None or self._copy.shape != state[0].shape:
-            self._copy = torch.empty_like(state[0])
-        self._copy.copy_(state[0])
-        return [self._copy] + [x.clone() for x in state[1:]]
-
-    def __call__(self, *args):
-        state, (out, t, m_t) = args[:11], args[11:]
-        n = state[0].shape[0]
-        i, j = out[:2].tolist()
-        kind = self.KINDS[i == m_t - 1]
-        ref = self._state_copy(state)
-        Q0 = state[2].clone()
-        join.dnj_join_plain(*ref, out.clone(), t, m_t)
-        if self.timing and not self.kinds[kind] and (i or j):
-            changed = int((ref[2] != Q0).sum())
-            self._time(state, out, t, m_t, kind,
-                       join_bytes(n, m_t, i, j, changed))
-        join.dnj_join(*state, out, t, m_t)
-        err = max(words_err(state[0], ref[0]),
-                  max_abs_err(state[1:], ref[1:]))
-        self.err = max(self.err, err)
-        assert err == 0, f"dnj_join differs from its plain version at " \
-                         f"join {t} (i={i}, j={j}, m_t={m_t})"
-        self.kinds[kind] += 1
-        self.kinds["m_t == 3"] += m_t == 3
-        self.joins += 1
-
-    def _time(self, state, out, t, m_t, kind, nbytes):
-        # repeated on a scratch copy: the same (i, j) on a drifting state
-        # moves the same cells
-        tmp = [x.clone() for x in state]
-        prep = join.dnj_join_prepare(*tmp)
-        ms = cuda_ms(lambda: join.dnj_join(*tmp, out, t, m_t, prep=prep),
-                     20)
-        plain = cuda_ms(lambda: join.dnj_join_plain(*tmp, out, t, m_t), 5)
-        del tmp
-        self.timed.append({"join": t, "m_t": m_t, "kind": kind, "ms": ms,
-                           "plain_ms": plain, "bound_ms": bytes_ms(nbytes),
-                           "blocks": prep[1]})
-
-    def summary(self) -> dict:
-        k = max(len(self.timed), 1)
-        return {"joins": self.joins, "max_abs_err": self.err,
-                "kinds": self.kinds, "timed": self.timed,
-                "ms": sum(t["ms"] for t in self.timed) / k,
-                "plain_ms": sum(t["plain_ms"] for t in self.timed) / k,
-                "bound_ms": sum(t["bound_ms"] for t in self.timed) / k}
-
-
-def checked_prefix(words8, n, joins, timed, res, key):
-    """Hold dnj_scan and dnj_join against their plain versions on the
-    first `joins` joins of a real run on a copy of the byte matrix
-    `words8`; with `timed`, the prefix must hold a scan of each kind,
-    and the first of each kind of scan and of join is timed.  Returns
-    the summaries of the scan and of the join."""
-    chk = pe.SCANS["checked"] = CheckedScan(timed)
-    cj = pe.BODIES["checked"] = CheckedJoin(timed)
-    try:
-        run_prefix(words8.clone().view(torch.int32), n, joins, "checked",
-                   "checked")
-    finally:
-        del pe.SCANS["checked"], pe.BODIES["checked"]
-    res[key] = s = chk.summary()
-    res[key + "_join"] = sj = cj.summary()
-    assert s["joins"] == joins and sj["joins"] == joins
-    assert not timed or (all(s["kinds"].values())
-                         and len(s["timed"]) == len(CheckedScan.KINDS)), s
-    log(f"dnj_scan equals dnj_scan_plain on the first {joins} joins at "
-        f"n={n}: {s['kinds']}")
-    for t in s["timed"]:
-        log(f"  join {t['join']}: {t['passes']} passes, {t['rows']} rows: "
-            f"dnj_scan {t['ms']:.4f} ms, plain version "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms")
-    log(f"dnj_join equals dnj_join_plain on the first {joins} joins at "
-        f"n={n}: {sj['kinds']}")
-    for t in sj["timed"]:
-        log(f"  join {t['join']} (m_t={t['m_t']}, {t['kind']}, "
-            f"{t['blocks']} blocks): dnj_join {t['ms']:.4f} ms, plain "
-            f"version {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms")
-    return s, sj
 
 
 def new_state(words8, n):
@@ -666,6 +454,16 @@ def plain_joins(st, t0, t1, n, nbytes):
         rows = torch.cat(scanned) if scanned else Q0.new_zeros(0)
         nbytes[0] += scan_bytes(rows, m_t) + 16 + join_bytes(
             npad, m_t, i, j, int((st["Q"] != Q0).sum()))
+
+
+def first_joins(words8, n, joins, plain=False) -> dict:
+    """The packed engine's state after its first `joins` joins on a copy
+    of the byte matrix `words8`: one dnj_segment launch, or with `plain`
+    the plain loop."""
+    st = new_state(words8, n)
+    run = segment.dnj_segment_plain if plain else segment.dnj_segment
+    run(*(st[k] for k in pe._STATE_KEYS), 0, joins, n, KBATCH)
+    return st
 
 
 def state_err(a: dict, b: dict) -> int:
@@ -772,80 +570,42 @@ def segment_breakdown(words8, n, joins, flag_sets, res, key):
     return out
 
 
-class SegmentProbe:
-    """A SEGMENTS entry for pe.dnj_joins_packed that runs the engine's own
-    dnj_segment launch (with the buffers the engine prepares once a run)
-    on the first segment of a run, after the card has finished the run's
-    init, and measures it: under torch.cuda.set_sync_debug_mode("error")
-    (any host read raises), queued behind a spin, with CUDA events
-    around the launch (the card's ms per join) and the host's clock
-    around the wrapper's call (its µs per segment)."""
-
-    def __init__(self):
-        self.ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        self.host_s, self.joins = None, 0
-
-    def __call__(self, *a, prep=None):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            torch.cuda._sleep(PROBE_SPIN)
-            self.ev[0].record()
-            h0 = time.perf_counter()
-            segment.dnj_segment(*a, prep=prep)
-            self.host_s = time.perf_counter() - h0
-            self.ev[1].record()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        self.joins = a[12] - a[11]
-
-    def run(self, words, n, joins) -> dict:
-        pe.SEGMENTS["probe"] = self
-        pe._PREPARE[self] = segment.dnj_segment_prepare
-        build.reset_launches()
-        try:
-            run_prefix(words, n, joins, "segment", "probe")
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            del pe.SEGMENTS["probe"], pe._PREPARE[self]
-        assert build.launches["dnj_segment"] == 1 and self.joins == joins \
-            and build.launches["dnj_scan"] == build.launches["dnj_join"] \
-            == 0, build.launches
-        return {"joins": joins, "sync_debug_error_joins": joins,
-                "card_ms_per_join": self.ev[0].elapsed_time(self.ev[1])
-                / joins,
-                "host_us_per_segment": 1e6 * self.host_s}
-
-
 def probe_segment(words8, n, res, key):
+    """One dnj_segment launch of the first segment of a run on a copy of
+    `words8`, with the buffers the engine prepares once a run, after the
+    card has finished the run's init, measured: under
+    torch.cuda.set_sync_debug_mode("error") (any host read raises),
+    queued behind a spin, with CUDA events around the launch (the card's
+    ms per join) and the host's clock around the wrapper's call (its µs
+    per segment)."""
     joins = min(segmenting.SEG, n - 2)
-    p = res[key] = SegmentProbe().run(words8.clone().view(torch.int32), n,
-                                      joins)
+    st = new_state(words8, n)
+    args = [st[k] for k in pe._STATE_KEYS]
+    prep = segment.dnj_segment_prepare(*args, KBATCH)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(PROBE_SPIN)
+        ev[0].record()
+        h0 = time.perf_counter()
+        segment.dnj_segment(*args, 0, joins, n, KBATCH, prep=prep)
+        host_s = time.perf_counter() - h0
+        ev[1].record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in build.launches.items() if v}
+    assert launched == {"dnj_segment": 1}, launched
+    p = res[key] = {"joins": joins, "sync_debug_error_joins": joins,
+                    "card_ms_per_join": ev[0].elapsed_time(ev[1]) / joins,
+                    "host_us_per_segment": 1e6 * host_s}
     log(f"device loop n={n}: one dnj_segment launch of {joins} joins under "
         f"set_sync_debug_mode('error') (no host read); on the card "
         f"{p['card_ms_per_join']:.5f} ms per join; the host's call "
         f"{p['host_us_per_segment']:.1f} us per segment")
     return p
-
-
-def engine_turns(words8, n, res, key):
-    """The packed engine alone on copies of `words8`, in turns: one
-    dnj_segment launch a segment, the loop of two launches a join
-    (scan "fused"), the same again, one launch a segment; joins/s of
-    each (init and the final stats read included)."""
-    runs = res[key] = []
-    for scan_name in ("segment", "fused", "fused", "segment"):
-        words = words8.clone().view(torch.int32)
-        build.reset_launches()
-        _, t = synced(lambda: pe.dnj_joins_packed(words, n, kbatch=KBATCH,
-                                                  scan=scan_name))
-        runs.append({"scan": scan_name, "s": t, "joins_per_s": (n - 2) / t,
-                     "launches": {k: v for k, v in build.launches.items()
-                                  if v}})
-        del words
-    log(f"packed engine alone n={n}, in turns: " + "; ".join(
-        f"{r['scan']} {r['joins_per_s']:,.1f} joins/s" for r in runs))
-    return runs
 
 
 # ---------------------------------------------------------------------
@@ -1355,7 +1115,9 @@ def phase_float_sizes(dev, res):
 
 
 def phase_kernels(dev, g, res):
-    err = {k: 0 for k in KERNEL_META}
+    # qrow_mins without slots: no path launches it, but it is held and
+    # timed here as the kernel that qrow_mins_slots is held against
+    err = {k: 0 for k in (*KERNEL_META, "qrow_mins")}
     bound = res["bound_ms"] = {}
 
     def rand_words(shape):
@@ -1491,18 +1253,13 @@ def phase_kernels(dev, g, res):
         (rmin, rarg), scan.qrow_mins_plain(rows, 10, words, sd2)))
     del words, sd2
 
-    # the fused scan, the join body and the segment kernel (each of its
-    # flag sets) from an all-tie matrix (every cell 5, so every cached Q
-    # ties): the whole engine run at n = 2048, then the first joins at
-    # n = 32768, against the plain versions at every join (scan, body)
-    # or every CHECK_SEG joins (segment)
+    # the segment kernel (each of its flag sets) from an all-tie matrix
+    # (every cell 5, so every cached Q ties): the whole engine run at
+    # n = 2048, then the first joins at n = 32768, against the plain
+    # loop every CHECK_SEG joins
     for n, joins in ((N_DIST, N_DIST - 2), (N_SCALE, CHECKED_JOINS)):
         tie = torch.full((n, n), 5, dtype=torch.uint8, device=dev)
         tie.fill_diagonal_(0)
-        s, sj = checked_prefix(tie, n, joins, False, res,
-                               f"scan_check_ties_{n}")
-        err["dnj_scan"] = max(err["dnj_scan"], s["max_abs_err"])
-        err["dnj_join"] = max(err["dnj_join"], sj["max_abs_err"])
         h = held_to_plain(tie, n, joins, list(SEG_FLAGS), res,
                           f"segment_check_ties_{n}")
         err["dnj_segment"] = max(err["dnj_segment"], h["max_abs_err"])
@@ -1615,8 +1372,7 @@ def phase_main_path(dev, g, res):
         flat, n, names(), "dnj", 0, 9, "b", 1.0))
     res["main_path_launches"] = dict(build.launches)
     assert build.launches["dnj_segment"] == -(-(n - 2) // segmenting.SEG) \
-        and build.launches["dnj_scan"] == build.launches["dnj_join"] == 0, \
-        build.launches
+        and build.launches["qrow_mins"] == 0, build.launches
     seg_passes = int(pe.dnj_joins_packed.last_stats[0])
     split = res["tree_seam_split_s"] = dict(pe.build_tree_packed.last_times)
     split["other"] = t_tree - sum(split.values())
@@ -1630,67 +1386,16 @@ def phase_main_path(dev, g, res):
         f"{pairs / t_pair:,.0f} sample-pairs/s")
     log(f"tree seam -m dnj -b: {t_tree:.3f} s, {(n - 2) / t_tree:,.0f} "
         f"joins/s, scan passes {seg_passes}, dnj_segment launches "
-        f"{build.launches['dnj_segment']} (dnj_scan, dnj_join: 0); "
+        f"{build.launches['dnj_segment']}; "
         "seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
-
-    def launched():
-        return {k: v for k, v in build.launches.items() if v}
-
-    # the same path with the host-driven passes over qrow_mins, counted
-    # for the `kernels` line
-    build.reset_launches()
-    nwk_passes, t = synced(lambda: pe.build_tree_packed(
-        flat, n, names(), scan="passes"))
-    assert nwk == nwk_passes, "Newick differs from the passes run"
-    assert build.launches["dnj_scan"] == 0
-    res["path_launches"] = {"passes": launched()}
-    runs = res["tree_runs"] = [
-        {"scan": "segment", "body": "kernel", "s": t_tree,
-         "passes": seg_passes, "launches": res["main_path_launches"],
-         "split_s": split},
-        {"scan": "passes", "body": "kernel", "s": t,
-         "passes": int(pe.dnj_joins_packed.last_stats[0]),
-         "launches": launched()}]
-    # in turns through build_tree_packed (host work included): the loop
-    # of a segment (one dnj_segment launch; two launches a join, scan
-    # "fused"), then the join body (kernel, plain) on the two-launch loop
-    for scan_name, body in (("segment", "kernel"), ("fused", "kernel"),
-                            ("fused", "kernel"), ("segment", "kernel"),
-                            ("fused", "kernel"), ("fused", "plain"),
-                            ("fused", "plain"), ("fused", "kernel")):
-        build.reset_launches()
-        out, t = synced(lambda: pe.build_tree_packed(
-            flat, n, names(), scan=scan_name, body=body))
-        assert out == nwk
-        runs.append({"scan": scan_name, "body": body, "s": t,
-                     "passes": int(pe.dnj_joins_packed.last_stats[0]),
-                     "launches": launched(),
-                     "split_s": dict(pe.build_tree_packed.last_times)})
-    # the launches of the two-launch loop, for the `kernels` line
-    res["path_launches"]["fused"] = runs[3]["launches"]
-    assert runs[3]["launches"]["dnj_scan"] == n - 2
-    for r in runs:
-        r["joins_per_s"] = (n - 2) / r["s"]
-        log(f"tree n={n} scan={r['scan']} body={r['body']}: {r['s']:.3f} "
-            f"s, {r['joins_per_s']:,.1f} joins/s, {r['passes']} passes "
-            f"({r['passes'] / (n - 2):.3f} per join), launches "
-            f"{r['launches']}" + ("" if "split_s" not in r else
-                                  "; engine " + f"{r['split_s']['engine']:.4f}"
-                                  " s"))
 
     D8 = torch.from_numpy(np.clip(Dh, 0, 255).astype(np.uint8)).to(dev)
     D8 = torch.nn.functional.pad(D8, (0, pe.pad_packed(n) - n,
                                       0, pe.pad_packed(n) - n))
-    engine_turns(D8, n, res, f"engine_turns_{n}")
-    # dnj_scan and dnj_join against their plain versions on every join
-    # of this tree, timed on the first join of each kind; dnj_segment
-    # against its plain version at every boundary of CHECK_SEG joins;
-    # then one segment's card time and host time, with no host read
-    s, sj = checked_prefix(D8, n, n - 2, True, res, f"scan_check_{n}")
-    assert all(sj["kinds"].values()), sj["kinds"]
+    # dnj_segment against its plain version at every boundary of
+    # CHECK_SEG joins of this tree; then one segment's card time and
+    # host time, with no host read
     err = res.setdefault("max_abs_err", {})
-    for name, x in (("dnj_scan", s), ("dnj_join", sj)):
-        err[name] = max(err.get(name, 0), x["max_abs_err"])
     h = held_to_plain(D8, n, n - 2, list(SEG_FLAGS), res,
                       f"segment_check_{n}")
     err["dnj_segment"] = max(err.get("dnj_segment", 0), h["max_abs_err"])
@@ -1726,18 +1431,13 @@ def phase_main_path(dev, g, res):
     log(f"dist rows {check} equal the host kernels; median distance "
         f"{np.median(flat)}, max {flat.max()}")
 
-    nwk_plain, t_plain = synced(lambda: pe.build_tree_packed(
-        flat, n, names(), device=dev, scan="plain"))
-    assert nwk == nwk_plain, "Newick differs from the plain-scan run"
-    res["tree_plain_scan_s"] = t_plain
     t0 = time.perf_counter()
     # bytescale 1.0: the CLI default of -b (build_tree defaults to 128)
     nwk_host = build_tree(flat.copy(), n, names(), "dnj", dtype="b",
                           bytescale=1.0)
     res["tree_host_exact_s"] = time.perf_counter() - t0
     assert nwk == nwk_host, "Newick differs from the host exact -b engine"
-    log(f"Newick ({len(nwk)} bytes) equals the plain-scan run "
-        f"({t_plain:.1f} s) and the host exact -b engine "
+    log(f"Newick ({len(nwk)} bytes) equals the host exact -b engine's "
         f"({res['tree_host_exact_s']:.1f} s)")
     return flat
 
@@ -1768,9 +1468,8 @@ def phase_scale(dev, g, res):
     build.reset_launches()
     out, t = synced(lambda: pe.dnj_joins_packed(words, n, kbatch=KBATCH))
     launches = build.launches["dnj_segment"]
-    assert launches == -(-(n - 2) // segmenting.SEG) \
-        and build.launches["dnj_scan"] == build.launches["dnj_join"] \
-        == build.launches["qrow_mins"] == 0, build.launches
+    assert {k: v for k, v in build.launches.items() if v} \
+        == {"dnj_segment": -(-(n - 2) // segmenting.SEG)}, build.launches
     I, J = out[0].cpu().numpy()[:n - 2], out[1].cpu().numpy()[:n - 2]
     m_t = n - np.arange(n - 2)
     assert ((J >= 0) & (J < I) & (I < m_t)).all(), "bad join records"
@@ -1783,40 +1482,31 @@ def phase_scale(dev, g, res):
         f"{res['scale_scan_passes']} passes "
         f"({res['scale_scan_passes'] / (n - 2):.3f} per join)")
     del words
-    engine_turns(D8, n, res, f"engine_turns_{n}")
-
-    # dnj_scan and dnj_join against their plain versions on the first
-    # joins of this matrix, timed on the first join of each kind (scan:
-    # no pass, one, several; join: popArrange, i == last): their means
-    # are the `kernels` line's times of the two kernels
-    s, sj = checked_prefix(D8, n, CHECKED_JOINS, True, res,
-                           f"scan_check_{n}")
-    err = res.setdefault("max_abs_err", {})
-    for name, x in (("dnj_scan", s), ("dnj_join", sj)):
-        res.setdefault("kernel_ms", {})[name] = (x["ms"], x["plain_ms"])
-        res.setdefault("bound_ms", {})[name] = x["bound_ms"]
-        err[name] = max(err.get(name, 0), x["max_abs_err"])
-    # dnj_segment the same way at every boundary of CHECK_SEG joins; its
-    # first launch, of the default flags, is the `kernels` line's
+    # dnj_segment against its plain version at every boundary of
+    # CHECK_SEG joins of the first CHECKED_JOINS; its first launch, of
+    # the default flags, is the `kernels` line's
     h = held_to_plain(D8, n, CHECKED_JOINS, list(SEG_FLAGS), res,
                       f"segment_check_{n}")
+    err = res.setdefault("max_abs_err", {})
     err["dnj_segment"] = max(err.get("dnj_segment", 0), h["max_abs_err"])
     default = next(f for f, v in SEG_FLAGS.items() if v == segment.FLAGS)
-    res["kernel_ms"]["dnj_segment"] = (h["first_segment_ms"][default],
-                                       h["first_segment_plain_ms"])
-    res["bound_ms"]["dnj_segment"] = h["first_segment_bound_ms"]
+    res.setdefault("kernel_ms", {})["dnj_segment"] = (
+        h["first_segment_ms"][default], h["first_segment_plain_ms"])
+    res.setdefault("bound_ms", {})["dnj_segment"] = \
+        h["first_segment_bound_ms"]
     probe_segment(D8, n, res, f"segment_probe_{n}")
     segment_breakdown(D8, n, segmenting.SEG,
                       list(SEG_FLAGS),
                       res, f"segment_breakdown_{n}")
 
-    # the first joins again with the plain scan, on the untouched matrix
+    # the first joins again with the plain loop, on the untouched matrix
     k = PREFIX_JOINS
-    prefix = run_prefix(D8.view(torch.int32), n, k, "plain")
+    prefix = first_joins(D8, n, k, plain=True)
     for name, ours in zip(("I", "J", "DIJ2", "SDI2", "SDJ2"), out[:5]):
-        np.testing.assert_array_equal(np.asarray(prefix[name])[:k],
+        np.testing.assert_array_equal(prefix[name][:k].cpu().numpy(),
                                       ours.cpu().numpy()[:k], err_msg=name)
-    log(f"first {k} joins equal the plain-scan run")
+    del prefix
+    log(f"first {k} joins equal the plain loop's")
     # the float engine's segment kernel on this matrix in float64 (and
     # float32), then its whole tree
     float_at_scale(D8, n, res)
@@ -1950,27 +1640,27 @@ def first_difference(a: bytes, b: bytes) -> int:
 
 def parity_run(words: torch.Tensor, n: int, card: str) -> tuple:
     """The whole tree of the packed engine on the hash matrix `words`
-    (updated in place) through its entry points: dnj_joins_packed at the
-    default scan and body (one dnj_segment launch a segment), then
-    `parity_newick`.  Asserts the run's segment flags (STAGE_Q exactly
+    (updated in place) through its entry points: dnj_joins_packed (one
+    dnj_segment launch a segment), then `parity_newick`.  Asserts the run's segment flags (STAGE_Q exactly
     where Q fits in shared memory) and its launches (dnj_segment once a
     segment, no other kernel of the join loop).  Returns (Newick,
     records digest, measures)."""
     npad = words.shape[0]
     preps = []
+    real = pe.dnj_segment_prepare
 
     def prepare(*a, **kw):
-        preps.append(segment.dnj_segment_prepare(*a, **kw))
+        preps.append(real(*a, **kw))
         return preps[-1]
 
-    pe._PREPARE[segment.dnj_segment] = prepare
+    pe.dnj_segment_prepare = prepare
     build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     try:
         out, t_engine = synced(lambda: pe.dnj_joins_packed(words, n,
                                                            kbatch=KBATCH))
     finally:
-        pe._PREPARE[segment.dnj_segment] = segment.dnj_segment_prepare
+        pe.dnj_segment_prepare = real
     peak = torch.cuda.max_memory_allocated()
     launches = {k: v for k, v in build.launches.items() if v}
     flags = preps[0][2]
@@ -2007,7 +1697,7 @@ def phase_parity(dev, res):
     (benchmarks/evidence: the bytes at N_PARITY, the sha256 at both) and
     the records to the evidence's digest; at N_PARITY first
     dnj_segment held to dnj_segment_plain at every CHECK_SEG joins of
-    the first CHECKED_JOINS (every state array), `SegmentProbe` and
+    the first CHECKED_JOINS (every state array), `probe_segment` and
     `segment_breakdown` on the first segment.  Prints seconds of every
     step, joins/s, passes per join and the peak memory on the card,
     each with the card's name and power limit."""
@@ -2126,31 +1816,24 @@ def phase_streamed(dev, g, res, D8=None):
     Dq = D8.cpu().numpy()
 
     # the packed engine's first joins on the same matrix, timed
-    prefix, t_packed = synced(lambda: run_prefix(
-        D8.clone().view(torch.int32), n, joins, "segment"))
+    prefix, t_packed = synced(lambda: first_joins(D8, n, joins))
     out["packed_joins_per_s"] = joins / t_packed
     log(f"packed engine n={n}, first {joins} joins: {t_packed:.2f} s, "
         f"{joins / t_packed:,.1f} joins/s")
 
-    # and with the host-driven passes scan, which the row-cache engine
-    # shares: what is left of the gap is the cache's
-    _, t_passes = synced(lambda: run_prefix(
-        D8.clone().view(torch.int32), n, STREAM_MORE, "passes"))
-    out["packed_passes_first_joins_per_s"] = STREAM_MORE / t_passes
-
     eng = se.StreamedDNJ(Dq, n, X=X, kbatch=KBATCH, device=dev)
     build.reset_launches()
     recs, out["first"] = streamed_stretch(eng, 0, joins)
-    log(f"first {STREAM_MORE} joins at n={n}: packed engine with the "
-        f"passes scan {STREAM_MORE / t_passes:,.1f} joins/s, row-cache "
-        f"engine {out['first']['first_joins_per_s']:,.1f} joins/s")
+    log(f"first {STREAM_MORE} joins at n={n}: row-cache engine "
+        f"{out['first']['first_joins_per_s']:,.1f} joins/s")
     res["streamed_launches"] = dict(build.launches)
     assert build.launches["qrow_mins_slots"] > 0 \
-        and build.launches["qrow_mins"] == build.launches["dnj_scan"] == 0
+        and build.launches["qrow_mins"] == 0
     for name, ours in zip(("I", "J", "DIJ2", "SDI2", "SDJ2"), recs):
         np.testing.assert_array_equal(ours[:joins],
-                                      np.asarray(prefix[name])[:joins],
+                                      prefix[name][:joins].cpu().numpy(),
                                       err_msg=name)
+    del prefix
     out["first"]["passes"] = int(eng.stats[0])
     out["first"]["qrow_mins_slots_launches"] = \
         build.launches["qrow_mins_slots"]

@@ -221,8 +221,8 @@ def test_result_reports_seconds_and_launches(runs, world):
     for name in dryrun.STAGES:
         assert float(ours["seconds/" + name]) > 0, name
     launches = {k for k in ours if k.startswith("launches/")}
-    assert {"launches/snp_expand_shared", "launches/dnj_scan",
-            "launches/dnj_join", "launches/qrow_mins_slots"} <= launches
+    assert {"launches/snp_expand_shared", "launches/dnj_segment",
+            "launches/qrow_mins_slots"} <= launches
     # CPU tensors: every wrapper takes its plain version, no launch
     assert all(int(ours[k]) == 0 for k in launches)
 

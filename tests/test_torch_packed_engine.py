@@ -1,10 +1,8 @@
 """The port's packed exact-integer DNJ engine
-(ccphylo_tpu_torch/tree/packed_engine.py, plain scan on the CPU) against
-the JAX engine ccphylo_tpu.tree.packed_engine and the host exact -b
-engine of both packages, with each of the engine's scans (`segment`,
-one launch per segment of joins, the default; `fused`, one launch per
-join; `passes`, the host-driven loop over qrow_mins; `plain`) and join
-bodies (`kernel`, one launch per join or per segment; `plain`).
+(ccphylo_tpu_torch/tree/packed_engine.py, one `dnj_segment` call per
+fenced segment, its plain version on the CPU) against the JAX engine
+ccphylo_tpu.tree.packed_engine and the host exact -b engine of both
+packages, across segment seams of every size and across checkpoints.
 Everything compared is an integer or the bytes of a Newick string, so
 every comparison is bit-exact (tolerance 0)."""
 
@@ -74,18 +72,20 @@ def test_records_match_jax_engine(n, seed, hi):
                                   jpe.dnj_joins_packed.last_stats)
 
 
-@pytest.mark.parametrize("body", sorted(tpe.BODIES))
-@pytest.mark.parametrize("scan", sorted(tpe.SCANS))
+@pytest.mark.parametrize("hi", [40, 6])
+@pytest.mark.parametrize("seg", [1024, 64, 7, 1])
 @pytest.mark.parametrize("kbatch", [128, 8])
-def test_every_scan_matches_jax_engine(scan, kbatch, body):
+def test_segments_match_jax_engine(monkeypatch, kbatch, seg, hi):
     """Records, the final byte matrix and the scan statistics (passes,
-    changed rows) of each scan, under each join body, equal the JAX
-    engine's, also where a join takes several passes (kbatch 8)."""
+    changed rows) equal the JAX engine's whatever the segments' length,
+    one join a segment included, also where a join takes several
+    passes (kbatch 8) and where cells tie densely (hi 6)."""
     n = 150
     rng = np.random.RandomState(21)
-    qv = rng.randint(0, 40, n * (n - 1) // 2).astype(np.uint8)
+    qv = rng.randint(0, hi, n * (n - 1) // 2).astype(np.uint8)
     Dq = _square(qv, n, tpe.pad_packed(n))
-    ours = _port(Dq, n, kbatch=kbatch, scan=scan, body=body)
+    monkeypatch.setattr(segmenting, "SEG", seg)
+    ours = _port(Dq, n, kbatch=kbatch)
     stats = tpe.dnj_joins_packed.last_stats.copy()
     ref = _jax(Dq, n, kbatch=kbatch)
     _assert_same(ours, ref)
@@ -94,51 +94,26 @@ def test_every_scan_matches_jax_engine(scan, kbatch, body):
     assert stats[0] > (n - 2 if kbatch == 8 else 0)
 
 
-def test_unknown_scan_is_refused():
-    Dq = _square(np.ones(45, np.uint8), 10, tpe.pad_packed(10))
-    with pytest.raises(ValueError, match="fused"):
-        _port(Dq, 10, scan="nope")
-
-
-def test_unknown_body_is_refused():
-    Dq = _square(np.ones(45, np.uint8), 10, tpe.pad_packed(10))
-    with pytest.raises(ValueError, match="kernel"):
-        _port(Dq, 10, body="nope")
-
-
 def test_records_stay_tensors_and_default_body(monkeypatch):
     """The engine keeps I and J as tensors on the device of `words` (the
-    records are never copied to the host between fences); by default it
-    runs each segment as one call of the segment kernel's wrapper, with
-    scan="fused" the kernel body once a join, and the plain body with
-    the plain scan."""
+    records are never copied to the host between fences) and runs each
+    segment as one call of the segment kernel's wrapper."""
     n = 40
     rng = np.random.RandomState(3)
     Dq = _square(rng.randint(0, 30, n * (n - 1) // 2).astype(np.uint8), n,
                  tpe.pad_packed(n))
     seen = []
+    real = tpe.dnj_segment
 
-    def spy(table, name):
-        fn = getattr(tpe, table)[name]
+    def spy(*a, **kw):
+        seen.append((type(a[5]), type(a[6]), a[11], a[12]))
+        return real(*a, **kw)
 
-        def body(*a, **kw):
-            seen.append((table, name, type(a[5]), type(a[6])))
-            return fn(*a, **kw)
-        return body
-
-    for table in ("BODIES", "SEGMENTS"):
-        monkeypatch.setattr(tpe, table, {k: spy(table, k)
-                                         for k in getattr(tpe, table)})
-    ref = _port(Dq, n, scan="plain")
-    assert {s[:2] for s in seen} == {("BODIES", "plain")}
-    seen.clear()
-    _assert_same(_port(Dq, n), ref)
-    assert [s[:2] for s in seen] == [("SEGMENTS", "kernel")]  # one segment
-    seen.clear()
-    _assert_same(_port(Dq, n, scan="fused"), ref)
-    assert {s[:2] for s in seen} == {("BODIES", "kernel")} \
-        and len(seen) == n - 2
-    assert {s[2:] for s in seen} == {(torch.Tensor, torch.Tensor)}
+    monkeypatch.setattr(tpe, "dnj_segment", spy)
+    monkeypatch.setattr(segmenting, "SEG", 16)
+    _assert_same(_port(Dq, n), _jax(Dq, n))
+    assert [s[2:] for s in seen] == [(0, 16), (16, 32), (32, n - 2)]
+    assert {s[:2] for s in seen} == {(torch.Tensor, torch.Tensor)}
 
 
 def test_kbatch_invariance():
@@ -163,14 +138,11 @@ def test_newick_matches_host_exact_b(seed):
                                  [Name(b"t%03d" % i, 32) for i in range(n)],
                                  bytescale=bs, device="cpu")
     assert ours == exact
-    # the port's own host engine and names, and the passes scan
+    # the port's own host engine and names
     port_exact = port_build_tree(
         flat.copy(), n, [PortName(b"t%03d" % i, 32) for i in range(n)],
         "dnj", dtype="b", bytescale=bs)
-    passes = tpe.build_tree_packed(
-        flat.copy(), n, [PortName(b"t%03d" % i, 32) for i in range(n)],
-        bytescale=bs, device="cpu", scan="passes")
-    assert port_exact == exact and passes == exact
+    assert port_exact == exact
 
 
 class _Killed(Exception):
@@ -224,27 +196,37 @@ def test_resume_from_checkpoint(tmp_path, monkeypatch, writer):
     assert not (tmp_path / "dnj.ckpt.npz").exists()  # cleaned up
 
 
-@pytest.mark.parametrize("writer,reader", [("fused", "passes"),
-                                           ("passes", "fused"),
-                                           ("segment", "fused"),
-                                           ("fused", "segment")])
-def test_resume_across_scans(tmp_path, monkeypatch, writer, reader):
-    """A snapshot written under one scan resumes under the other and
-    gives the uninterrupted records and statistics."""
+@pytest.mark.parametrize("kbatch", [16, 128])
+@pytest.mark.parametrize("segments", [1, 2, 3])
+def test_resume_at_each_segment(tmp_path, monkeypatch, segments, kbatch):
+    """A run of segments of 64 joins killed after its first, second or
+    third segment resumes from the snapshot taken there and gives the
+    records, final byte matrix and statistics of the JAX engine's
+    uninterrupted run."""
     n = 220
     rng = np.random.RandomState(8)
     qv = rng.randint(0, 30, n * (n - 1) // 2).astype(np.uint8)
     Dq = _square(qv, n, tpe.pad_packed(n))
-    ref = _port(Dq, n, kbatch=16, scan="plain")
-    stats = tpe.dnj_joins_packed.last_stats.copy()
-    monkeypatch.setenv("CCPHYLO_TORCH_CKPT", str(tmp_path / "x.npz"))
+    ref = _jax(Dq, n, kbatch=kbatch)
+    stats = np.asarray(jpe.dnj_joins_packed.last_stats).copy()
+    ck = tmp_path / "x.npz"
+    monkeypatch.setenv("CCPHYLO_TORCH_CKPT", str(ck))
     monkeypatch.setenv("CCPHYLO_TORCH_CKPT_EVERY_S", "0")
     monkeypatch.setattr(segmenting, "SEG", 64)
+
+    def kill(state, done, total):
+        if done >= 64 * segments:
+            raise _Killed
+
     with pytest.raises(_Killed):
-        _port(Dq, n, kbatch=16, scan=writer, hooks=_killer)
+        _port(Dq, n, kbatch=kbatch, hooks=kill)
+    assert int(np.load(ck)["meta"][0]) == 64 * segments
     monkeypatch.setattr(tpe, "_packed_init", _no_init)
-    _assert_same(_port(Dq, n, kbatch=16, scan=reader), ref)
+    ours = _port(Dq, n, kbatch=kbatch)
+    _assert_same(ours, ref)
+    np.testing.assert_array_equal(ours[2], ref[2])
     np.testing.assert_array_equal(tpe.dnj_joins_packed.last_stats, stats)
+    assert not ck.exists()  # cleaned up
 
 
 def test_jax_engine_resumes_port_checkpoint(tmp_path, monkeypatch):

@@ -54,8 +54,7 @@ def _matrix(data, n=N):
 
 
 def _packed(Dq, n):
-    out = pe.dnj_joins_packed(pe.pack_words(Dq.copy(), "cpu"), n,
-                              scan="plain")
+    out = pe.dnj_joins_packed(pe.pack_words(Dq.copy(), "cpu"), n)
     recs = [a.numpy()[:n - 2] for a in out[:5]]
     return recs, int(out[5]), out[6].view(torch.uint8).numpy()
 
