@@ -36,14 +36,15 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from ..io import fileio, kma
 from ..utils import timing
 from ..io.phylip import (print_phy, print_phy_update, get_size_phy,
                          get_filenames_phy)
 from ..ops import pack2bit, snp
-from ..ops.snp_torch import (inc32_to_pairmask, snp_matrix,
-                             snp_matrix_pairwise, u32_tensor, u64_tensor)
+from ..ops.snp_torch import (_snp_matrix, _snp_matrix_pairwise,
+                             inc32_to_pairmask, padded_rows, u32_tensor)
 from ..ops.matdist_torch import (EXACT_METRICS, cmp_mats_from_table,
                                  pair_table, resolve_metric)
 from ..ops.veccmp import get_veccmp, cmp_mats
@@ -848,68 +849,90 @@ def _batch_shared(seqs, idxs, shared_inc):
 
     CCPHYLO_TORCH_DIST_CKPT=<dir> computes the fill tile-by-tile on the
     host with each finished tile persisted; a restarted run recomputes
-    only missing tiles (utils/checkpoint.py).
+    only missing tiles (utils/checkpoint.py).  It and the host route
+    stack the samples into one array.
 
-    On the device the samples' u64 words go up as they are (an int64
-    tensor: ops/snp_torch.py's loader layout, which the expansion kernel
-    reads in place); only the shared include words are converted on the
-    host, to a pair mask.
+    On the device no array of all samples is made on the host: each
+    sample's u64 words are copied from the loader's array into one
+    padded int64 buffer on the card (`padded_rows`: a ring of pinned
+    host blocks on CUDA), which the expansion kernel reads in place;
+    only the shared include words are converted on the host, to a pair
+    mask.
 
-    Its spans (utils/timing.py), in order: dist/stack (the samples' u64
-    words in one array), and on the device dist/convert (the pair mask
-    of the shared include words only), dist/upload (the words and the
-    mask), dist/kernels (`snp_matrix`: the expansion and Gram launches
-    and its host read of the mask) and dist/copy_back (the wait for the
-    last kernel and the counts' copy).  The counter dist/u64_fills
-    counts the device fills whose words went up unconverted."""
+    Its device spans (utils/timing.py), each once a fill, in order:
+    dist/stack (the rows copied into the ring's slots and the slots'
+    copies enqueued), dist/convert (the pair mask of the shared include
+    words), dist/upload (the mask's copy and the wait for the ring's
+    last block), dist/kernels (`_snp_matrix`: the expansion and Gram
+    launches and its host read of the mask) and dist/copy_back (the
+    wait for the last kernel and the counts' copy).  The counters
+    dist/u64_fills and dist/direct_fills count the device fills whose
+    words went up unconverted, straight into the padded buffer."""
+    ck_dir = os.environ.get("CCPHYLO_TORCH_DIST_CKPT")
+    if _use_device() and not ck_dir:
+        dev = device()
+        with timing.phase("dist/stack"):
+            s64 = padded_rows([seqs[i] for i in idxs], dev)
+        with timing.phase("dist/convert"):
+            pm = inc32_to_pairmask(shared_inc)
+        with timing.phase("dist/upload"):
+            pm = u32_tensor(pm, dev)
+            _drain(dev)
+        timing.count("dist/u64_fills")
+        timing.count("dist/direct_fills")
+        with timing.phase("dist/kernels"):
+            C = _snp_matrix(s64, pm, len(idxs))
+        with timing.phase("dist/copy_back"):
+            return C.cpu().numpy()
     with timing.phase("dist/stack"):
         S = np.stack([seqs[i] for i in idxs])
-    ck_dir = os.environ.get("CCPHYLO_TORCH_DIST_CKPT")
     if ck_dir:
         from ..utils.checkpoint import BlockCheckpoint, fingerprint_arrays
         bc = BlockCheckpoint(ck_dir, len(idxs),
                              fingerprint_arrays([S, shared_inc]))
         return bc.fill(lambda si, sj:
                        snp.cross_block(S[si], S[sj], shared_inc))
-    if _use_device():
-        dev = device()
-        with timing.phase("dist/convert"):
-            pm = inc32_to_pairmask(shared_inc)
-        with timing.phase("dist/upload"):
-            s64, pm = u64_tensor(S, dev), u32_tensor(pm, dev)
-        timing.count("dist/u64_fills")
-        with timing.phase("dist/kernels"):
-            C = snp_matrix(s64, pm)
-        with timing.phase("dist/copy_back"):
-            return C.cpu().numpy()
     return snp.pairwise_shared(S, shared_inc)
 
 
 def _batch_pairwise(seqs, includes, idxs):
     """All-pairs (dist, shared) with per-sample masks (proxi == 0); the
-    spans and counter of `_batch_shared`.  On the device both the u64
-    words and the samples' u32 include words go up as the loader hands
-    them (the expansion kernel reads an include word per u64 word in
-    place), so dist/convert holds only the include words made one
-    contiguous u32 array (no copy of the loader's stack).  The counter
-    dist/inc_word_fills counts the device fills whose masks went up as
-    include words."""
-    with timing.phase("dist/stack"):
-        S = np.stack([seqs[i] for i in idxs])
-        I = np.stack([includes[i] for i in idxs])
+    spans and counters of `_batch_shared`.  On the device both the u64
+    words and the samples' u32 include words go from the loader's
+    arrays into padded buffers on the card (`padded_rows`, words then
+    include words, both in dist/stack), as the loader hands them (the
+    expansion kernel reads an include word per u64 word in place);
+    dist/convert holds only the include words' view as u32 rows (no
+    copy), dist/upload only the wait for the ring's last block.  The
+    counter dist/inc_word_fills counts the device fills whose masks went
+    up as include words.  The host route stacks both."""
     if _use_device():
         dev = device()
         with timing.phase("dist/convert"):
-            I = np.ascontiguousarray(I, np.uint32)
+            incs = [np.asarray(includes[i], np.uint32) for i in idxs]
+        with timing.phase("dist/stack"):
+            s64 = padded_rows([seqs[i] for i in idxs], dev)
+            inc = padded_rows(incs, dev)
         with timing.phase("dist/upload"):
-            s64, inc = u64_tensor(S, dev), u32_tensor(I, dev)
+            _drain(dev)
         timing.count("dist/u64_fills")
         timing.count("dist/inc_word_fills")
+        timing.count("dist/direct_fills")
         with timing.phase("dist/kernels"):
-            D, N = snp_matrix_pairwise(s64, inc)
+            D, N = _snp_matrix_pairwise(s64, inc, len(idxs))
         with timing.phase("dist/copy_back"):
             return D.cpu().numpy(), N.cpu().numpy()
+    with timing.phase("dist/stack"):
+        S = np.stack([seqs[i] for i in idxs])
+        I = np.stack([includes[i] for i in idxs])
     return snp.pairwise_masked(S, I)
+
+
+def _drain(dev) -> None:
+    """Wait for the work queued on the device's stream: there, the
+    ring's last block of `padded_rows`."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def _print_diffs(diff, i, j, seq1, seq2, inc, length):

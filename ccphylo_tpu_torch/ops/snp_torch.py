@@ -21,12 +21,13 @@ dtype; the algorithm is the same, only the index of a word differs:
 - int32: u32 words in base order (hi first, `u64_to_u32`): base k of
   word w at bits (30-2k, 31-2k).  `sharded_snp_matrix`, the dry run and
   the tests pass these.
-- int64: the .fsa loader's u64 words as they are (`u64_tensor`, no host
-  pass): base k of word j at bits (62-2k, 63-2k).  Read as u32 words,
-  u64 word j is [lo, hi], so u32 word w of the int32 layout sits at
-  index w ^ 1; the kernels read it there, the plain versions shift by
-  62..0.  Chunk bounds are multiples of WB u32 words, so a chunk holds
-  whole u64 words.  The CLI's fills pass these.
+- int64: the .fsa loader's u64 words as they are (`u64_tensor`, or row
+  by row into a padded buffer by `padded_rows`; no host pass): base k
+  of word j at bits (62-2k, 63-2k).  Read as u32 words, u64 word j is
+  [lo, hi], so u32 word w of the int32 layout sits at index w ^ 1; the
+  kernels read it there, the plain versions shift by 62..0.  Chunk
+  bounds are multiples of WB u32 words, so a chunk holds whole u64
+  words.  The CLI's fills pass these.
 
 Per-sample masks come in one of two layouts too, told apart by their
 width against the W u32 sample words (`_inc_words`):
@@ -38,7 +39,7 @@ width against the W u32 sample words (`_inc_words`):
   per u64 sample word, position p of its 32 at bit 31-p; u32 sample
   word w is the hi (w even) or lo (w odd) half of include word w >> 1.
   Chunk bounds are multiples of WB, so a chunk holds whole include
-  words.  The CLI's per-sample fills pass these.
+  words.  The CLI's per-sample fills pass these (`padded_rows`).
 
 Words are held as signed bit patterns (CPU torch has no unsigned
 shifts); bits are extracted with ``(x >> s) & mask``, identical under
@@ -48,15 +49,23 @@ to the JAX functions.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
 from ..parallel import multihost as mh
+from ..utils import timing
 from . import build
 
 BLK = 512        # row-block height of the triangular Gram dots
 ROW_ALIGN = 128  # rows are padded to a multiple of this below BLK
 WB = 512         # chunk widths are multiples of this many u32 words
+RING_SLOTS = 3   # pinned host blocks of `padded_rows`' upload ring
+# bytes a ring block holds at most; a power of two, since PyTorch's
+# caching host allocator rounds a pinned block up to one
+SLOT_BYTES = 64 << 20
+COPY_THREADS = 4  # host threads that copy a block's rows into its slot
 
 # u32 word layout: base k of a word at bits (30-2k, 31-2k); u64: (62-2k,
 # 63-2k)
@@ -101,6 +110,70 @@ def u64_tensor(a: np.ndarray, device) -> torch.Tensor:
     u64 array on the host)."""
     a = np.ascontiguousarray(np.asarray(a, np.uint64))
     return torch.from_numpy(a.view(np.int64)).to(device)
+
+
+def padded_rows(rows, device) -> torch.Tensor:
+    """Sample rows -> one (npad, w) bit-pattern tensor on `device`, with
+    npad the padded row count of `_layout` (rows n..npad zero, as
+    `_pad_rows` pads), ready for `_snp_matrix` / `_snp_matrix_pairwise`.
+
+    `rows` is a sequence of n 1-d integer arrays of one width w and one
+    dtype: u64 sample words (an int64 tensor) or u32 include words
+    (int32); each is read as a separate array, never through a base
+    buffer rows may share.  On a CUDA device the rows cross through a
+    ring of RING_SLOTS pinned host blocks of at most SLOT_BYTES: the
+    host copies a block's rows into a free slot (COPY_THREADS threads,
+    each a share of the rows: numpy's copies release the GIL, and one
+    thread copies at a fraction of the DMA's rate), one non-blocking copy
+    moves the slot into those rows of the buffer on the current stream,
+    and an event on the slot marks when it may be refilled, so the host
+    copy of a block overlaps the transfer of the one before.  The last
+    transfers may still run when this returns (the stream orders them
+    before later work; the caching host allocator keeps a slot until
+    its copy is done).  Each block counts one `dist/ring_blocks`
+    (utils/timing.py).  On another device the rows are copied straight
+    into the buffer."""
+    n = len(rows)
+    first = np.asarray(rows[0])
+    w, item = first.shape[0], first.dtype.itemsize
+    dtype = {8: torch.int64, 4: torch.int32}[item]
+    buf = torch.empty((_padded(n)[1], w), dtype=dtype, device=device)
+    buf[n:].zero_()
+    if buf.device.type != "cuda":
+        _copy_rows(buf.numpy().view(first.dtype), rows, 0, n)
+        return buf
+    R = max(1, SLOT_BYTES // (w * item))
+    slots, done = [], [None] * RING_SLOTS
+    stream = torch.cuda.current_stream(buf.device)
+    with ThreadPoolExecutor(COPY_THREADS) as pool:
+        for b, r0 in enumerate(range(0, n, R)):
+            s, r1 = b % RING_SLOTS, min(n, r0 + R)
+            if b < RING_SLOTS:
+                slots.append(torch.empty((min(R, n), w), dtype=dtype,
+                                         pin_memory=True))
+            else:
+                done[s].synchronize()
+            out = slots[s].numpy().view(first.dtype)
+            step = -(-(r1 - r0) // COPY_THREADS)
+            list(pool.map(lambda a: _copy_rows(out[a - r0:], rows, a,
+                                               min(r1, a + step)),
+                          range(r0, r1, step)))
+            buf[r0:r1].copy_(slots[s][:r1 - r0], non_blocking=True)
+            done[s] = torch.cuda.Event()
+            done[s].record(stream)
+            timing.count("dist/ring_blocks")
+    return buf
+
+
+def _copy_rows(out: np.ndarray, rows, r0: int, r1: int) -> None:
+    """out[j - r0] = rows[j] for j in r0..r1, each of out's row shape and
+    dtype."""
+    for j in range(r0, r1):
+        row = rows[j]
+        if row.shape != out.shape[1:]:
+            raise ValueError(f"row {j}: shape {row.shape}, the rows "
+                             f"before it {out.shape[1:]}")
+        np.copyto(out[j - r0], row, casting="no")
 
 
 def _u32_per_col(seqs: torch.Tensor) -> int:
@@ -241,10 +314,15 @@ def _mirror_tril(G: torch.Tensor) -> torch.Tensor:
     return torch.tril(G) + torch.tril(G, -1).T
 
 
+def _padded(n: int):
+    """(row block B, padded rows) of n rows."""
+    B = BLK if n > BLK else max(ROW_ALIGN, -(-n // ROW_ALIGN) * ROW_ALIGN)
+    return B, -(-n // B) * B
+
+
 def _layout(n: int, W: int, wchunk: int | None):
     """(row block B, padded rows, words per chunk)."""
-    B = BLK if n > BLK else max(ROW_ALIGN, -(-n // ROW_ALIGN) * ROW_ALIGN)
-    npad = -(-n // B) * B
+    B, npad = _padded(n)
     if wchunk is not None:
         wc = max(WB, (wchunk // WB) * WB)
     else:
@@ -268,8 +346,16 @@ def snp_matrix(seqs: torch.Tensor, paircmask: torch.Tensor,
     words); paircmask: (W,) int32 pair mask.  Returns (n, n) int32
     distances, bit-identical to ops/snp_jax.snp_matrix and
     ops/snp_pallas.snp_matrix."""
+    return _snp_matrix(seqs, paircmask, seqs.shape[0], wchunk)
+
+
+def _snp_matrix(seqs: torch.Tensor, paircmask: torch.Tensor, n: int,
+                wchunk: int | None = None) -> torch.Tensor:
+    """`snp_matrix` of the first n rows of seqs, which holds n rows or
+    the layout's padded count with zero rows after n (`padded_rows`:
+    then no padded copy is made)."""
     k = _u32_per_col(seqs)
-    n, W = seqs.shape[0], k * seqs.shape[1]
+    W = k * seqs.shape[1]
     B, npad, wc = _layout(n, W, wchunk)
     seqs = _pad_rows(seqs, npad)
     gram = torch.zeros((npad, npad), dtype=torch.int32, device=seqs.device)
@@ -319,8 +405,16 @@ def snp_matrix_pairwise(seqs: torch.Tensor, incmasks: torch.Tensor,
     int32, (n, W) pair masks or (n, W/2) include words.  Returns (dist,
     shared) (n, n) int32, bit-identical to ops/snp_jax.snp_matrix_pairwise
     and ops/snp_pallas.snp_matrix_pairwise."""
+    return _snp_matrix_pairwise(seqs, incmasks, seqs.shape[0], wchunk)
+
+
+def _snp_matrix_pairwise(seqs: torch.Tensor, incmasks: torch.Tensor,
+                         n: int, wchunk: int | None = None):
+    """`snp_matrix_pairwise` of the first n rows of seqs and incmasks,
+    each holding n rows or the layout's padded count (as
+    `_snp_matrix`)."""
     k = _u32_per_col(seqs)
-    n, W = seqs.shape[0], k * seqs.shape[1]
+    W = k * seqs.shape[1]
     m = 2 if _inc_words(incmasks, W) else 1   # u32 words a mask column covers
     B, npad, wc = _layout(n, W, wchunk)
     seqs = _pad_rows(seqs, npad)
@@ -332,6 +426,7 @@ def snp_matrix_pairwise(seqs: torch.Tensor, incmasks: torch.Tensor,
                                incmasks[:, w0 // m:(w0 + wc) // m])
         _tri_dot_acc(gram, X, B)
         _tri_dot_acc(shared, M, B)
+        del X, M   # free this chunk before the next one is allocated
     shared = _mirror_tril(shared)
     dist = (3 * shared - _mirror_tril(gram)) // 4
     return dist[:n, :n], shared[:n, :n]

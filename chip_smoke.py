@@ -187,7 +187,7 @@ exits non-zero, no exception is caught:
 
 `python3 chip_smoke.py kernels main_path` runs the build and only the
 named phases (kernels, main_path, scale, parity, streamed, engines,
-sharded, matdist, cli, dryrun, profile, float_sizes) and
+sharded, matdist, cli, dryrun, profile, float_sizes, dist_ring) and
 prints their results without the contract lines: for work on one
 phase.  `float_sizes` runs only when named (`phase_float_sizes`):
 dnj_segment_float's designs in turns where the default switches
@@ -195,7 +195,11 @@ between them (ROWS and the list at n = 2048 to 4096; the list from the
 copy of Q and from slices at 8192 to 24576), a whole float64 run at n
 = 32768 in each of ROWS and the list, segment by segment, and builds
 of the kernel with other constants (the list's capacity, a piece's
-units) in turns with the source's.  `profile` runs only when named,
+units) in turns with the source's.  `dist_ring` runs only when named
+(`phase_dist_ring`): a dist fill's rows staged on the card at
+mrsa-2282's size, in turns: the host stack with its pageable upload
+and pad copy, a pageable copy a row, and `padded_rows`' pinned ring in
+variants.  `profile` runs only when named,
 and on its own: after the
 `engines` phase in one process its torch.profiler windows see no
 device activity on the card (the engines phase's own window, taken
@@ -1110,6 +1114,100 @@ def phase_float_sizes(dev, res):
                         f"float_constants_{N_SCALE}_{name}", key)
 
 
+# `dist_ring`: the cell's staging of a fill's rows, (name, snp_torch
+# constants) of the ring variants timed in turns with the others
+RING_VARIANTS = (("ring", {}),
+                 ("ring 1 thread", {"COPY_THREADS": 1}),
+                 ("ring 2 threads", {"COPY_THREADS": 2}),
+                 ("ring 6 threads", {"COPY_THREADS": 6}),
+                 ("ring 8 threads", {"COPY_THREADS": 8}),
+                 ("ring 32 MiB", {"SLOT_BYTES": 32 << 20}),
+                 ("ring 128 MiB", {"SLOT_BYTES": 128 << 20}),
+                 ("ring 2 slots", {"RING_SLOTS": 2}))
+N_RING, W64_RING = 2282, 88_168   # mrsa-2282: 2.82 Mbp, 32 bases a word
+
+
+def phase_dist_ring(dev, res):
+    """Only when named: how a dist fill's rows reach the card, at
+    mrsa-2282's size (N_RING samples of W64_RING u64 words and as many
+    u32 include words, each its own array), in turns (forward, then
+    backward, four rounds): the np.stack, pageable upload and pad copy
+    on the card that the seams made before `padded_rows`; one pageable
+    copy_ a row into the padded buffer; `padded_rows`' pinned ring with
+    its constants and with those of RING_VARIANTS.  Each time ends with
+    the buffers on the card (synchronised); "words" stages the sample
+    words (a shared-mask fill), "both" the words then the include words
+    (a per-sample fill).  Before any of them, the first ring fill of the
+    process, which allocates the pinned slots, and that allocation
+    again after the caching host allocator is emptied."""
+    n, W64 = N_RING, W64_RING
+    npad = snp_torch._padded(n)[1]
+    rng = np.random.default_rng(SEED)
+    base = rng.integers(0, 2 ** 63, (64, W64), dtype=np.int64)
+    words = [base[i % 64].view(np.uint64).copy() for i in range(n)]
+    incs = [base[i % 64].view(np.uint32)[::2].copy() for i in range(n)]
+    assert incs[0].shape == (W64,)
+    del base
+
+    def stack(rows):
+        S = np.stack(rows)
+        t = (snp_torch.u64_tensor(S, dev) if S.dtype == np.uint64
+             else snp_torch.u32_tensor(S, dev))
+        return snp_torch._pad_rows(t, npad)
+
+    def row_copy(rows):
+        signed = np.int64 if rows[0].dtype == np.uint64 else np.int32
+        buf = torch.empty((npad, W64), device=dev, dtype=torch.int64
+                          if signed is np.int64 else torch.int32)
+        buf[n:].zero_()
+        for j, r in enumerate(rows):
+            buf[j].copy_(torch.from_numpy(r.view(signed)))
+        return buf
+
+    def ring(consts):
+        def run(rows):
+            old = {k: getattr(snp_torch, k) for k in consts}
+            for k, v in consts.items():
+                setattr(snp_torch, k, v)
+            try:
+                return snp_torch.padded_rows(rows, dev)
+            finally:
+                for k, v in old.items():
+                    setattr(snp_torch, k, v)
+        return run
+
+    out = res.setdefault("dist_ring", {})
+    first, t = synced(lambda: snp_torch.padded_rows(words, dev))
+    assert np.array_equal(first[:n].cpu().numpy().view(np.uint64)[::97],
+                          np.stack(words[::97]))
+    del first
+    out["first_fill_words_s"] = t
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        allocs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            empty()
+            allocs.append(synced(lambda: snp_torch.padded_rows(words,
+                                                               dev))[1])
+        out["fresh_pinned_fill_words_s"] = allocs
+    variants = [("stack", stack), ("row_copy", row_copy)] + [
+        (name, ring(c)) for name, c in RING_VARIANTS]
+    times = {f"{name} {what}": [] for name, _ in variants
+             for what in ("words", "both")}
+    for r in range(4):
+        for name, fn in (variants if r % 2 == 0 else variants[::-1]):
+            times[f"{name} words"].append(synced(lambda: fn(words))[1])
+            times[f"{name} both"].append(
+                synced(lambda: (fn(words), fn(incs)))[1])
+    out["times_s"] = times
+    log(f"dist_ring n={n} W64={W64}: first fill {t:.4f} s; fresh pinned "
+        f"{out.get('fresh_pinned_fill_words_s')}")
+    for k, v in times.items():
+        log(f"  {k}: median {float(np.median(v)):.4f} s, "
+            f"{' '.join(f'{x:.4f}' for x in v)}")
+
+
 # ---------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 
@@ -1336,9 +1434,9 @@ def host_inc32(inc: torch.Tensor) -> np.ndarray:
 def phase_main_path(dev, g, res):
     """dist -> tree through the port's CLI seams, on the host arrays the
     CLI hands them: dist_cmd._batch_shared / _batch_pairwise (u64
-    sequences, u32 include words; the include words' host conversion,
-    the u64 words copied to the card as they are, kernels, n x n copy
-    back) and tree_cmd._dispatch_build with the
+    sequences, u32 include words; each row copied into a padded card
+    buffer through the pinned ring, the shared mask's host conversion,
+    kernels, n x n copy back) and tree_cmd._dispatch_build with the
     packed engine."""
     n, L = N_DIST, L_DIST
     (seqs, shared_inc, inc), t = synced(lambda: outbreak(dev, g, n, L))
@@ -3077,7 +3175,8 @@ def phase_dryrun(dev, res):
 
 
 PHASES = ("kernels", "main_path", "scale", "parity", "streamed", "engines",
-          "sharded", "matdist", "cli", "dryrun", "profile", "float_sizes")
+          "sharded", "matdist", "cli", "dryrun", "profile", "float_sizes",
+          "dist_ring")
 
 
 def main() -> int:
@@ -3113,9 +3212,11 @@ def main() -> int:
             lambda: phase_matdist(dev, res),
             lambda: phase_cli(res), lambda: phase_dryrun(dev, res),
             lambda: phase_profile(dev, res),
-            lambda: phase_float_sizes(dev, res))):
+            lambda: phase_float_sizes(dev, res),
+            lambda: phase_dist_ring(dev, res))):
         if name in only or (not only and name not in ("profile",
-                                                      "float_sizes")):
+                                                      "float_sizes",
+                                                      "dist_ring")):
             t_phase = time.perf_counter()
             phase()
             res.setdefault("phase_s", {})[name] = \

@@ -7,6 +7,12 @@ converted int32 words, bit for bit; `snp_matrix` and
 numpy kernels.  The pairwise kernel on the loader's u32 include words
 (one per u64 word) equals it on their pair masks and its plain version,
 on both word layouts, whole and column-sliced, and so do the counts.
+Both dist seams of the CLI fill their padded buffers on the card
+through `padded_rows`' ring of pinned blocks (forced small: more blocks
+than slots, a partial last block): the buffers hold the rows exactly,
+the counts equal the plain versions', each block counts one
+`dist/ring_blocks`, and a fill's device memory peak leaves no room for
+a second copy of the words.
 
 Every test needs an NVIDIA card (marker `card`) and skips without one:
 a CUDA kernel has no CPU mode.  This file imports neither JAX nor the
@@ -19,8 +25,11 @@ JAX package.  On a machine with a card, from the root of a checkout
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from ccphylo_tpu_torch.cli import dist_cmd
 from ccphylo_tpu_torch.ops import snp, snp_torch
+from ccphylo_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.card
 
@@ -150,3 +159,124 @@ def test_inc_word_counts_on_the_card(dev, dtype):
     np.testing.assert_array_equal(d.cpu().numpy(), hd)
     off = ~np.eye(600, dtype=bool)
     np.testing.assert_array_equal(sh.cpu().numpy()[off], hn[off])
+
+
+@pytest.fixture
+def seam_env(dev, monkeypatch):
+    """The CLI's default route (the card), tracing off unless a profiler
+    records, counters empty."""
+    for k in ("CCPHYLO_TORCH_DEVICE", "CCPHYLO_TORCH_DIST",
+              "CCPHYLO_TORCH_DIST_CKPT", "CCPHYLO_TORCH_PROFILE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(timing, "_MODE", "")
+    monkeypatch.setattr(timing, "_spans", {})
+    monkeypatch.setattr(timing, "_counters", {})
+    return dev
+
+
+def _fill_inputs(samples, W64, seed):
+    """Per-sample arrays as the .fsa loader hands them (u64 words, u32
+    include words, each its own array), the shared include words, and a
+    fill that leaves out every 37th sample."""
+    s64, inc, _ = _data(samples, W64, seed)
+    incs = _run_masks(samples, W64, seed + 1)
+    idxs = [i for i in range(samples) if i % 37 != 5]
+    return ([np.array(r) for r in s64], [np.array(r) for r in incs], inc,
+            idxs)
+
+
+def _blocks(rows, W64, item):
+    R = max(1, snp_torch.SLOT_BYTES // (W64 * item))
+    assert rows % R and -(-rows // R) > snp_torch.RING_SLOTS
+    return -(-rows // R)
+
+
+@pytest.mark.parametrize("kind", ["shared", "pairwise"])
+def test_ring_fills_the_padded_buffer(seam_env, monkeypatch, kind):
+    """303 rows in blocks of 7 u64 rows (14 include-word rows): more
+    blocks than slots, a partial last block.  `padded_rows` holds the
+    rows and zero padding to 384 rows, the seam's counts equal the plain
+    versions' on the CPU, and every block counts one dist/ring_blocks."""
+    dev = seam_env
+    W64 = 96
+    monkeypatch.setattr(snp_torch, "SLOT_BYTES", 7 * 8 * W64)
+    s64, incs, inc, idxs = _fill_inputs(312, W64, seed=27)
+    n = len(idxs)
+    words = [s64[i] for i in idxs]
+    masks = [incs[i] for i in idxs]
+    bufs = [snp_torch.padded_rows(words, dev)]
+    if kind == "pairwise":
+        bufs.append(snp_torch.padded_rows(masks, dev))
+    for buf, rows, np_dt in zip(bufs, (words, masks),
+                                (np.uint64, np.uint32)):
+        host = buf.cpu().numpy().view(np_dt)
+        assert host.shape == (384, W64)
+        np.testing.assert_array_equal(host[:n], np.stack(rows))
+        assert not host[n:].any()
+    with profile(activities=[ProfilerActivity.CPU]):
+        if kind == "shared":
+            got = dist_cmd._batch_shared(s64, idxs, inc)
+        else:
+            got = dist_cmd._batch_pairwise(s64, incs, idxs)
+    blocks = _blocks(n, W64, 8)
+    if kind == "shared":
+        pm = snp_torch.u32_tensor(snp_torch.inc32_to_pairmask(inc), "cpu")
+        plain = snp_torch.snp_matrix(
+            snp_torch.u64_tensor(np.stack(words), "cpu"), pm).numpy()
+        np.testing.assert_array_equal(got, plain)
+    else:
+        blocks += _blocks(n, W64, 4)
+        plain = snp_torch.snp_matrix_pairwise(
+            snp_torch.u64_tensor(np.stack(words), "cpu"),
+            snp_torch.u32_tensor(np.stack(masks), "cpu"))
+        for g, p in zip(got, plain):
+            np.testing.assert_array_equal(g, p.numpy())
+    assert timing.counters()["dist/ring_blocks"] == blocks
+    assert timing.counters()["dist/direct_fills"] == 1
+
+
+# device bytes a fill may hold beyond its padded buffers, one expansion
+# chunk and eight npad x npad int32 matrices (the Grams, their mirrored
+# copies and the int8 products' outputs): the mask and the allocator's
+# rounding; a second copy of the words (48 MiB here) would pass it
+_MARGIN = 4 << 20
+
+
+@pytest.mark.parametrize("kind", ["shared", "pairwise"])
+def test_fill_peak_holds_one_copy_of_the_words(seam_env, monkeypatch, kind):
+    """Wide rows (16384 u64 words: a 48 MiB padded buffer) through a
+    ring of 1 MiB blocks: the fill's device memory peak stays within the
+    padded buffers, one expansion chunk, the Grams and _MARGIN, and the
+    counts equal those of the public entry points on the stacked words
+    (which pad a copy)."""
+    dev = seam_env
+    W64 = 16384
+    monkeypatch.setattr(snp_torch, "SLOT_BYTES", 1 << 20)
+    s64, incs, inc, idxs = _fill_inputs(312, W64, seed=29)
+    n = len(idxs)
+    B, npad, wc = snp_torch._layout(n, 2 * W64, None)
+    words = np.stack([s64[i] for i in idxs])
+    pm = snp_torch.u32_tensor(snp_torch.inc32_to_pairmask(inc), dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    if kind == "shared":
+        got = dist_cmd._batch_shared(s64, idxs, inc)
+        held = npad * W64 * 8 + npad * 48 * wc
+    else:
+        got = dist_cmd._batch_pairwise(s64, incs, idxs)
+        held = npad * W64 * (8 + 4) + npad * (48 + 16) * wc
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    bound = held + 8 * npad * npad * 4 + _MARGIN
+    assert peak <= bound, (peak, bound)
+    w = snp_torch.u64_tensor(words, dev)
+    if kind == "shared":
+        np.testing.assert_array_equal(
+            got, snp_torch.snp_matrix(w, pm).cpu().numpy())
+        return
+    ref = snp_torch.snp_matrix_pairwise(
+        w, snp_torch.u32_tensor(np.stack([incs[i] for i in idxs]), dev))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r.cpu().numpy())

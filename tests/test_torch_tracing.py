@@ -3,9 +3,9 @@ the CPU: the spans the tree and dist seams open under a torch.profiler,
 on the caller's thread and nested as the engines nest their steps; no
 record_function and no count while tracing is off; the packed engine's
 `last_times` read from its spans; the scan-pass counter against the
-engines' own count; the dist seams' u64 words uploaded unconverted,
-their counts against the host route's and their fill counter; self
-time on a fake clock."""
+engines' own count; the dist seams' u64 words uploaded unconverted
+with no host stack, their counts against the host route's, their fill
+counters and spans once a fill; self time on a fake clock."""
 
 import json
 import threading
@@ -232,49 +232,93 @@ def test_into_times_without_tracing(fresh):
     assert timing.spans() == {}
 
 
-DIST_SEAMS = {"_batch_shared": (lambda: dist_cmd._batch_shared,
-                                _shared_inputs),
-              "_batch_pairwise": (lambda: dist_cmd._batch_pairwise,
-                                  _pairwise_inputs)}
+def _skip(args, k):
+    """args with its k-th, the fill's sample indices, leaving out every
+    37th sample (from the 6th): a fill of fewer rows than the loader's
+    arrays."""
+    args = list(args)
+    args[k] = [i for i in args[k] if i % 37 != 5]
+    return tuple(args)
+
+
+# seam -> (dist_cmd function, its inputs); 133 and 530 fills need
+# padded rows (to 256, 1024: neither a multiple of 128 nor of 512)
+DIST_SEAMS = {"_batch_shared": ("_batch_shared", _shared_inputs),
+              "_batch_pairwise": ("_batch_pairwise", _pairwise_inputs),
+              "_batch_shared-133": (
+                  "_batch_shared", lambda: _skip(_shared_inputs(137), 1)),
+              "_batch_pairwise-133": (
+                  "_batch_pairwise", lambda: _skip(_pairwise_inputs(137), 2)),
+              "_batch_shared-530": (
+                  "_batch_shared", lambda: _skip(_shared_inputs(545), 1)),
+              "_batch_pairwise-530": (
+                  "_batch_pairwise", lambda: _skip(_pairwise_inputs(545), 2))}
+
+
+class _NoStack:
+    """numpy for dist_cmd, with `stack` refused."""
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    @staticmethod
+    def stack(*a, **k):
+        raise AssertionError("np.stack called on the device route")
 
 
 @pytest.mark.parametrize("seam", list(DIST_SEAMS))
 def test_dist_seams_upload_u64_words_unconverted(fresh, monkeypatch, seam):
-    """The device route (the plain versions on the CPU) never converts
-    the sample words to u32 (`u64_to_u32` raises here), nor, in
+    """The device route (the plain versions on the CPU) stacks no
+    samples on the host (dist_cmd's `np.stack` raises here), never
+    converts the sample words to u32 (`u64_to_u32` raises), nor, in
     `_batch_pairwise`, the samples' include words to pair masks
     (`inc32_to_pairmask` raises), and gives the counts of the
-    CCPHYLO_TORCH_DIST=host route; each of its fills counts one
-    `dist/u64_fills` (and, per-sample masks, one `dist/inc_word_fills`)
-    while tracing is on, none while off."""
+    CCPHYLO_TORCH_DIST=host route, also where the fill leaves samples
+    out and its rows need padding; each of its fills counts one
+    `dist/u64_fills` and one `dist/direct_fills` (and, per-sample
+    masks, one `dist/inc_word_fills`) and opens each dist/* span once
+    while tracing is on, none while off.  The CPU has no upload ring,
+    so no `dist/ring_blocks`."""
     from ccphylo_tpu_torch.ops import snp_torch
 
+    name, inputs = DIST_SEAMS[seam]
+    pairwise = name == "_batch_pairwise"
     refused = ["u64_to_u32"]
-    if seam == "_batch_pairwise":
+    if pairwise:
         refused.append("inc32_to_pairmask")
-    for name in refused:
-        def refuse(*a, _name=name, **k):
+    for fname in refused:
+        def refuse(*a, _name=fname, **k):
             raise AssertionError(f"{_name} called on the device route")
-        monkeypatch.setattr(snp_torch, name, refuse)
-        monkeypatch.setattr(dist_cmd, name, refuse, raising=False)
-    fn, inputs = DIST_SEAMS[seam]
+        monkeypatch.setattr(snp_torch, fname, refuse)
+        monkeypatch.setattr(dist_cmd, fname, refuse, raising=False)
+    fn = getattr(dist_cmd, name)
     args = inputs()
-    ours = fn()(*args)
+    n = len(args[-1] if pairwise else args[1])
+    with monkeypatch.context() as m:
+        m.setattr(dist_cmd, "np", _NoStack())
+        ours = fn(*args)
     monkeypatch.setenv("CCPHYLO_TORCH_DIST", "host")
-    host = fn()(*args)
+    host = fn(*args)
     monkeypatch.delenv("CCPHYLO_TORCH_DIST")
-    if seam == "_batch_shared":
+    if not pairwise:
+        assert ours.shape == (n, n)
         np.testing.assert_array_equal(ours, host)
     else:
+        assert ours[0].shape == ours[1].shape == (n, n)
         np.testing.assert_array_equal(ours[0], host[0])
         # the host kernel leaves the (unused) diagonal of `shared` at 0
-        off = ~np.eye(len(args[0]), dtype=bool)
+        off = ~np.eye(n, dtype=bool)
         np.testing.assert_array_equal(ours[1][off], host[1][off])
     assert timing.counters() == {}
-    with profile(activities=[ProfilerActivity.CPU]):
-        fn()(*args)
-        fn()(*args)
-    assert timing.counters()["dist/u64_fills"] == 2
-    assert timing.counters().get("dist/inc_word_fills", 0) == \
-        (2 if seam == "_batch_pairwise" else 0)
-    assert timing.spans()["dist/convert"][1] == 2
+    with monkeypatch.context() as m:
+        m.setattr(dist_cmd, "np", _NoStack())
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn(*args)
+            fn(*args)
+    assert timing.counters() == {"dist/u64_fills": 2,
+                                 "dist/direct_fills": 2,
+                                 **({"dist/inc_word_fills": 2}
+                                    if pairwise else {})}
+    spans = timing.spans()
+    assert {k: v[1] for k, v in spans.items() if k.startswith("dist/")} \
+        == {k: 2 for k in DIST_SPANS}
